@@ -1,0 +1,106 @@
+"""Configuration of the PyTorch port: the reference geometry and model widths.
+
+The port's own copy of the JAX package's ``Config`` (the port imports nothing
+of that package). It keeps the fields the inference path reads plus the
+derived geometry. The TPU layout knobs (``block_space``, ``block_out``,
+``block_out_dec1``) are left out: they are exact rewrites of the same convs
+for the TPU's matrix unit and change no parameter, so the port always runs
+the natural conv layout.
+
+Geometry: voxel 0.25x0.25x0.4 m over x,y in [-32, 32] m and z in [-3, 2] m, a
+256x256x13 binary BEV occupancy grid; 6 rotated anchors per cell with a
+(dx, dy, dw, dl, sin, cos) box code; binary (background/vehicle) classes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Detection configuration (numeric defaults of the reference Config)."""
+
+    voxel_size: Tuple[float, float, float] = (0.25, 0.25, 0.4)
+    area_extents: Tuple[Tuple[float, float], ...] = ((-32.0, 32.0), (-32.0, 32.0), (-3.0, 2.0))
+
+    # 5 vehicles + optionally 1 RSU.
+    max_agents: int = 6
+
+    # 6 rotated anchors per BEV cell, (w, l, theta).
+    anchor_sizes: Tuple[Tuple[float, float, float], ...] = (
+        (2.0, 4.0, 0.0),
+        (2.0, 4.0, math.pi / 2.0),
+        (1.0, 1.0, 0.0),
+        (1.0, 2.0, 0.0),
+        (1.0, 2.0, math.pi / 2.0),
+        (0.8, 0.8, 0.0),
+    )
+
+    # (dx, dy, dw, dl, sin, cos)
+    box_code_size: int = 6
+    num_classes: int = 2
+
+    score_threshold: float = 0.3
+    nms_iou_threshold: float = 0.01
+    nms_top_k: int = 256
+
+    backbone_channels: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    head_channels: int = 128
+
+    # Fusion stage index (``--layer``); 3 fuses 32x32x256 maps at the 256 grid.
+    fusion_layer: int = 3
+
+    # "bfloat16": conv inputs and weights in bf16, accumulation and BatchNorm
+    # in fp32. "float32": the exact mode the parity tests run.
+    compute_dtype: str = "bfloat16"
+
+    # Storage dtype of the packed (B*A, H, W, 48) head tensor that the NMS
+    # reads. The fp32 cls/reg views are always sliced from the fp32 result.
+    head_raw_dtype: str = "bfloat16"
+
+    @property
+    def grid_size(self) -> Tuple[int, int, int]:
+        """BEV grid cells per axis: ceil(extent / voxel)."""
+        dims = []
+        for (lo, hi), v in zip(self.area_extents, self.voxel_size):
+            dims.append(int(math.ceil((hi - lo) / v - 1e-9)))
+        return tuple(dims)
+
+    @property
+    def bev_shape(self) -> Tuple[int, int, int]:
+        """(H, W, Z) occupancy shape, Z as channels."""
+        return self.grid_size
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.anchor_sizes)
+
+    @property
+    def fusion_channels(self) -> int:
+        return self.backbone_channels[min(self.fusion_layer, len(self.backbone_channels) - 1)]
+
+    def anchor_centers(self) -> np.ndarray:
+        """(H, W, 2) metric xy centers of each BEV cell."""
+        (x_lo, _), (y_lo, _), _ = self.area_extents
+        vx, vy, _ = self.voxel_size
+        gx, gy, _ = self.grid_size
+        xs = x_lo + (np.arange(gx, dtype=np.float32) + 0.5) * vx
+        ys = y_lo + (np.arange(gy, dtype=np.float32) + 0.5) * vy
+        cx, cy = np.meshgrid(xs, ys, indexing="ij")
+        return np.stack([cx, cy], axis=-1)
+
+
+def tiny_config(grid: int = 64, **overrides) -> Config:
+    """A small config for tests: the full architecture on a ``grid``^2 map."""
+    half = grid * 0.25 / 2.0
+    defaults = dict(
+        area_extents=((-half, half), (-half, half), (-3.0, 2.0)),
+        nms_top_k=64,
+    )
+    defaults.update(overrides)
+    return Config(**defaults)

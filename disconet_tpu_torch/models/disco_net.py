@@ -1,0 +1,56 @@
+"""DiscoNet student: per-pixel matrix-valued edge weights (the DiscoGraph).
+
+For receiver i, every sender j's fusion-layer map is warped into i's frame; a
+1x1-conv stack scores cat(ego_i, warped_j) per pixel; a per-pixel softmax over
+present senders (self-edge included) gives the weights, and the fused map is
+the weighted sum. All (B, Ar, As) pairs run as one batch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from disconet_tpu_torch.models.backbone import ConvBNRelu
+from disconet_tpu_torch.models.base import IntermediateFusionModel, sender_softmax
+
+
+class PixelWeightedFusion(nn.Module):
+    """Edge scorer: 1x1 convs 2C -> 128 -> 32 -> 8 (BN + ReLU) -> 1 (linear)."""
+
+    def __init__(self, channels: int, bf16: bool = True):
+        super().__init__()
+        self.ConvBNRelu_0 = ConvBNRelu(2 * channels, 128, kernel=1, bf16=bf16)
+        self.ConvBNRelu_1 = ConvBNRelu(128, 32, kernel=1, bf16=bf16)
+        self.ConvBNRelu_2 = ConvBNRelu(32, 8, kernel=1, bf16=bf16)
+        self.Conv_0 = nn.Conv2d(8, 1, 1)
+
+    def forward(self, ego: torch.Tensor, warped: torch.Tensor) -> torch.Tensor:
+        """``ego`` (N, h, w, C) per receiver and ``warped`` (N*S, h, w, C)
+        (receiver, sender) pairs, channel-last -> scores (N*S, h, w) float32.
+
+        The first conv runs split (``forward_pair1x1``): the ego half of its
+        kernel projects once per receiver and cat(ego, warped) is never built.
+        """
+        x = self.ConvBNRelu_0.forward_pair1x1(ego, warped)
+        x = self.ConvBNRelu_2.forward_last(self.ConvBNRelu_1.forward_last(x))
+        w = self.Conv_0.weight[:, :, 0, 0]  # (1, 8), fp32 as in the JAX model
+        return (x.float() @ w.t() + self.Conv_0.bias)[..., 0]
+
+
+class DiscoNet(IntermediateFusionModel):
+    """Intermediate-collaboration student with DiscoGraph fusion."""
+
+    def __init__(self, config, layer: int = 3):
+        super().__init__(config, layer)
+        self.weight_net = PixelWeightedFusion(
+            self.layer_channels, bf16=config.compute_dtype == "bfloat16"
+        )
+
+    def fuse(self, feats_k, warped, agent_mask):
+        B, Ar, As, h, w, C = warped.shape
+        scores = self.weight_net(
+            feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C)
+        ).reshape(B, Ar, As, h, w)
+        weights = sender_softmax(scores, agent_mask)
+        return (weights[..., None] * warped).sum(dim=2)

@@ -1,0 +1,53 @@
+"""Anchors and the rotated-box codec.
+
+Boxes everywhere are (cx, cy, w, l, theta): metric BEV coordinates, theta in
+radians. Corners run counter-clockwise from the (+w/2, +l/2) corner in the
+box frame.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from disconet_tpu_torch.config import Config
+
+
+def make_anchors(config: Config) -> np.ndarray:
+    """(H, W, A, 5) anchor boxes [cx, cy, w, l, theta], float32."""
+    centers = config.anchor_centers()  # (H, W, 2)
+    H, W, _ = centers.shape
+    A = config.num_anchors
+    sizes = np.asarray(config.anchor_sizes, dtype=np.float32)  # (A, 3)
+    anchors = np.zeros((H, W, A, 5), dtype=np.float32)
+    anchors[..., 0:2] = centers[:, :, None, :]
+    anchors[..., 2] = sizes[None, None, :, 0]
+    anchors[..., 3] = sizes[None, None, :, 1]
+    anchors[..., 4] = sizes[None, None, :, 2]
+    return anchors
+
+
+def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Deltas (..., 6) against anchors (..., 5) -> boxes (..., 5).
+
+    cx = dx * d_a + ax, cy = dy * d_a + ay with d_a = sqrt(aw^2 + al^2);
+    w = exp(clip(dw, -10, 10)) * aw, l likewise; theta = atan2(sin, cos).
+    """
+    da = torch.sqrt(anchors[..., 2] ** 2 + anchors[..., 3] ** 2)
+    cx = deltas[..., 0] * da + anchors[..., 0]
+    cy = deltas[..., 1] * da + anchors[..., 1]
+    w = torch.exp(torch.clamp(deltas[..., 2], -10.0, 10.0)) * anchors[..., 2]
+    l = torch.exp(torch.clamp(deltas[..., 3], -10.0, 10.0)) * anchors[..., 3]
+    theta = torch.atan2(deltas[..., 4], deltas[..., 5])
+    return torch.stack([cx, cy, w, l, theta], dim=-1)
+
+
+def box_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """Boxes (..., 5) -> corners (..., 4, 2), counter-clockwise."""
+    cx, cy, w, l, th = boxes.unbind(-1)
+    dx = torch.stack([w / 2, -w / 2, -w / 2, w / 2], dim=-1)
+    dy = torch.stack([l / 2, l / 2, -l / 2, -l / 2], dim=-1)
+    c, s = torch.cos(th)[..., None], torch.sin(th)[..., None]
+    x = cx[..., None] + c * dx - s * dy
+    y = cy[..., None] + s * dx + c * dy
+    return torch.stack([x, y], dim=-1)
