@@ -20,6 +20,7 @@ half-planes admit all of the other box and the union is a rounding residue.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -93,6 +94,17 @@ def rotated_iou_matrix_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> to
     return torch.where(ok, inter / union, torch.zeros_like(inter))
 
 
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, resolved and typed once per process."""
+    from disconet_tpu_torch import _build
+
+    fn = _build.load("rotated_iou").rotated_iou_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return fn
+
+
 def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """Wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
@@ -109,14 +121,9 @@ def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Te
     M = boxes_b.shape[1]
     if B > 65535:
         raise ValueError(f"at most 65535 frames per launch, got {B}")
-    from disconet_tpu_torch import _build
-
-    fn = _build.load("rotated_iou").rotated_iou_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     with torch.cuda.device(boxes_a.device):
         out = torch.empty((B, N, M), dtype=torch.float32, device=boxes_a.device)
-        err = fn(
+        err = _launcher()(
             boxes_a.data_ptr(),
             boxes_b.data_ptr(),
             out.data_ptr(),

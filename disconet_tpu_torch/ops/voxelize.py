@@ -13,6 +13,8 @@ oracle of the JAX package does.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,11 +31,39 @@ def grid_dims(voxel_size, extents) -> Tuple[int, ...]:
     return tuple(int(d) for d in np.ceil(counts - 1e-9).astype(np.int64))
 
 
-def _geometry(voxel_size, extents):
+class _KernelGeometry(ctypes.Structure):
+    """The kernel's ``Geometry`` (``csrc/voxelize.cu``)."""
+
+    _fields_ = [("lo", ctypes.c_float * 3), ("hi", ctypes.c_float * 3),
+                ("vs", ctypes.c_float * 3), ("dims", ctypes.c_int * 3)]
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_geometry(voxel_size, extents):
     lo = np.array([e[0] for e in extents], dtype=np.float32)
     hi = np.array([e[1] for e in extents], dtype=np.float32)
     vs = np.asarray(voxel_size, dtype=np.float32)
-    return lo, hi, vs, grid_dims(voxel_size, extents)
+    dims = grid_dims(voxel_size, extents)
+    f3 = ctypes.c_float * 3
+    kernel = _KernelGeometry(f3(*map(float, lo)), f3(*map(float, hi)), f3(*map(float, vs)),
+                             (ctypes.c_int * 3)(*dims))
+    return (lo, hi, vs, dims), kernel
+
+
+def _geometry(voxel_size, extents):
+    """(lo, hi, vs, dims), cached per geometry: callers must not modify the arrays."""
+    return _cached_geometry(tuple(voxel_size), tuple(tuple(e) for e in extents))[0]
+
+
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, resolved and typed once per process."""
+    from disconet_tpu_torch import _build
+
+    fn = _build.load("voxelize").voxelize_occupy_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.POINTER(_KernelGeometry), ctypes.c_void_p]
+    return fn
 
 
 def _check(points: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -100,35 +130,21 @@ def voxelize_occupy(
     _check(points, mask)
     if not points.is_contiguous() or (mask is not None and not mask.is_contiguous()):
         raise ValueError("points and mask must be contiguous")
-    lo, hi, vs, dims = _geometry(voxel_size, extents)
-    H, W, Z = dims
+    (_, _, _, (H, W, Z)), geometry = _cached_geometry(tuple(voxel_size), tuple(tuple(e) for e in extents))
     if Z > 32:
         raise ValueError(f"the bit-packed kernel takes at most 32 z cells, got {Z}")
-    from disconet_tpu_torch import _build
-
-    lib = _build.load("voxelize")
-    fn = lib.voxelize_occupy_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-
     batch_shape = points.shape[:-2]
     n = points.shape[-2]
-    nb = int(np.prod(batch_shape))
+    nb = math.prod(batch_shape)
     with torch.cuda.device(points.device):
-        packed = torch.zeros((nb, H, W), dtype=torch.int32, device=points.device)
         out = torch.empty((nb, H, W, Z), dtype=torch.float32, device=points.device)
-        f3 = ctypes.c_float * 3
-        err = fn(
+        err = _launcher()(
             points.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            packed.data_ptr(),
             out.data_ptr(),
             nb,
             n,
-            f3(*lo),
-            f3(*hi),
-            f3(*vs),
-            (ctypes.c_int * 3)(*dims),
+            ctypes.byref(geometry),
             torch.cuda.current_stream(points.device).cuda_stream,
         )
     if err != 0:

@@ -24,7 +24,7 @@ from disconet_tpu_torch import tiny_config
 from disconet_tpu_torch.ops import boxes as tboxes
 from disconet_tpu_torch.ops import nms as tnms
 from disconet_tpu_torch.ops import warp as twarp
-from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix, rotated_iou_matrix_plain
+from disconet_tpu_torch.ops.rotated_iou import _corners, rotated_iou_matrix, rotated_iou_matrix_plain
 from disconet_tpu_torch.ops.voxelize import grid_dims, voxelize_occupy, voxelize_occupy_plain
 
 VS = (0.25, 0.25, 0.4)
@@ -129,6 +129,94 @@ def test_rotated_iou_padding_rows_are_zero():
     live = np.setdiff1d(np.arange(20), [3, 7])
     pallas = np.asarray(rotated_iou_matrix_pallas(jnp.asarray(a), jnp.asarray(a), interpret=True))
     np.testing.assert_allclose(got[:, live][:, :, live], pallas[:, live][:, :, live], atol=1e-5)
+
+
+def test_rotated_iou_hoisting_identities():
+    """The float32 identities that let ``csrc/rotated_iou.cu`` compute per box,
+    and once for both passes, what the plain version computes per pair and per
+    pass, with bit-identical results."""
+    rng = np.random.default_rng(21)
+    b = _boxes(rng, (1, 400))
+    b[..., :2] = rng.uniform(-32, 32, (1, 400, 2))  # the main path's coordinate range
+    b[0, 1] = b[0, 0]  # identical boxes
+    b[0, 2, 2:4] = 0.0  # zero size
+    b[0, 3, 2] = 0.0  # zero width
+    b[0, 200:204] = b[0, 0:4]  # the pairs below take A from the first 200, B from the rest
+    corners = _corners(*torch.from_numpy(b).unbind(-1))  # 4 x (x, y), each (1, 400)
+    tol = 1e-4
+    ex, ey, length = [], [], []
+    for k in range(4):
+        (x1, y1), (x2, y2) = corners[k], corners[(k + 1) % 4]
+        dx, dy = x2 - x1, y2 - y1  # edge k
+        nx, ny = -(y2 - y1), x2 - x1  # inward normal of plane k
+        assert torch.equal(torch.sqrt(nx * nx + ny * ny), torch.sqrt(dx * dx + dy * dy))
+        ln = torch.sqrt(dx * dx + dy * dy)
+        assert torch.equal((-tol) * ln, -(tol * ln))
+        ex.append(dx), ey.append(dy), length.append(ln)
+    A, B = slice(0, 200), slice(200, 400)
+    for e in range(4):
+        for k in range(4):
+            ax, ay = (c[0, A, None] for c in corners[e])
+            bx, by = (c[0, None, B] for c in corners[k])
+            aex, aey = ex[e][0, A, None], ey[e][0, A, None]
+            bex, bey = ex[k][0, None, B], ey[k][0, None, B]
+            # corner differences: b - a == -(a - b)
+            assert torch.equal(bx - ax, -(ax - bx)) and torch.equal(by - ay, -(ay - by))
+            # the B-in-A denominator is the A-in-B one negated
+            den1 = -bey * aex + bex * aey
+            den2 = -aey * bex + aex * bey
+            assert torch.equal(den2, -den1)
+            # the B-in-A numerator from the shared differences
+            dx, dy = ax - bx, ay - by
+            assert torch.equal(-aey * (bx - ax) + aex * (by - ay), aey * dx - aex * dy)
+            # the B-in-A quotient: -(num + (-tol*len)) / -den == (num - tol*len) / den
+            num2 = aey * dx - aex * dy
+            tl = tol * length[e][0, A, None]
+            live = den1 != 0
+            assert torch.equal((-(num2 + (-tl)) / -den1)[live], ((num2 - tl) / den1)[live])
+
+
+def test_rotated_iou_separated_pairs_are_exactly_zero():
+    """The kernel writes 0 without clipping where ``chip_smoke.skipped_pairs``
+    holds; the plain version must give exactly 0 there. Worst case: each box
+    turned so that a corner points at the other, the centres just beyond the
+    two reaches, so the corners are only the slack apart."""
+    from chip_smoke import iou_reach, skipped_pairs
+
+    rng = np.random.default_rng(31)
+    n = 4000
+    a = _boxes(rng, (1, n))
+    a[..., :2] = rng.uniform(-32, 32, (1, n, 2))
+    a[0, : n // 4, 2:4] *= 10.0  # some large boxes
+    b = _boxes(rng, (1, n))
+    phi = rng.uniform(-np.pi, np.pi, n)
+    a[0, :, 4] = phi - np.arctan2(a[0, :, 3], a[0, :, 2])  # corner 0 towards b
+    b[0, :, 4] = phi + np.pi - np.arctan2(b[0, :, 3], b[0, :, 2])  # corner 0 towards a
+    ta = torch.from_numpy(a)
+
+    def reach(t):
+        return iou_reach(t)[2][0].numpy().astype(np.float64)
+
+    dist = reach(ta) + 0.5 * np.hypot(b[0, :, 2], b[0, :, 3])
+    for _ in range(3):  # b's reach depends on b's centre: settle it
+        b[0, :, 0] = a[0, :, 0] + dist * np.cos(phi)
+        b[0, :, 1] = a[0, :, 1] + dist * np.sin(phi)
+        dist = (reach(ta) + reach(torch.from_numpy(b))) * (1 + 1e-6)
+    b[0, :, 0] = a[0, :, 0] + dist * np.cos(phi)
+    b[0, :, 1] = a[0, :, 1] + dist * np.sin(phi)
+    pairs_a, pairs_b = ta.reshape(n, 1, 5), torch.from_numpy(b).reshape(n, 1, 5)
+    sep = skipped_pairs(pairs_a, pairs_b)
+    assert sep.float().mean().item() > 0.99
+    iou = rotated_iou_matrix_plain(pairs_a, pairs_b)
+    assert (iou[sep] == 0).all()
+    # Dense random boxes with dead slots zeroed, as the NMS leaves them: every
+    # skipped pair is 0, every pair with a dead slot is skipped, and some
+    # pairs are clipped.
+    d = torch.from_numpy(_boxes(rng, (2, 300)))
+    d[:, 250:] = 0.0
+    sep, iou = skipped_pairs(d, d), rotated_iou_matrix_plain(d, d)
+    assert (iou[sep] == 0).all() and sep[:, 250:].all() and sep[:, :, 250:].all()
+    assert (~sep).any() and (iou[~sep] > 0).any()
 
 
 def test_rotated_iou_wrapper_cpu_path_and_checks():
