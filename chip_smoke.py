@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py            # the whole run, one GPU
-    python3 chip_smoke.py --profile  # also print the top CUDA kernels of one predict
+    python3 chip_smoke.py --profile  # also print the top CUDA kernels of one predict and one KD step
 
 Phases, each printing its own line; any failure exits non-zero:
 
@@ -29,7 +29,21 @@ Phases, each printing its own line; any failure exits non-zero:
    bound (the IoU's counts only the pairs this run's boxes make it clip), and
    the IoU's device time on sparser and denser boxes; the stages of
    ``predict``; ``predict`` per batch and scenes/s, the median of 5 windows
-   of 60 calls.
+   of 60 calls;
+7. DiscoNet training with knowledge distillation at the full ``Config()``
+   width in bf16: a student with KD taps and a frozen TeacherNet, batch 4 x
+   6 agents with one absent, occupancy grids packed on the host and
+   unpacked on the card, sparse targets of 8 car-sized boxes a frame from
+   the port's ``assign_targets``. 3 warm-up KD steps, then 5 windows of 5
+   steps on the same batch; every metric must be finite, the loss must
+   fall, the student's BatchNorm statistics must move and the teacher must
+   stay bit-identical. Prints the step's ms (median window), scenes/s, peak
+   memory and a breakdown (plain step, KD step, teacher forward alone).
+   Then the trained student's ``predict`` from points: both kernels'
+   launch counts must rise, keep masks equal to the plain ops';
+8. one KD step on the card against the same step on the CPU, float32
+   64-grid, same weights and batch: every metric within rtol 1e-4, the
+   second step's loss within 1e-3.
 
 Prints the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -158,7 +172,9 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from disconet_tpu_torch import Config, build_model, example_batch, make_anchors, predict, tiny_config
+    from disconet_tpu_torch import (
+        Config, build_model, example_batch, example_train_batch, make_anchors, predict, tiny_config,
+    )
     from disconet_tpu_torch import _build
     from disconet_tpu_torch.models.base import agents_to_batch
     from disconet_tpu_torch.ops.nms import packed_scores_and_deltas, rotated_nms_decode
@@ -350,8 +366,8 @@ def main(argv) -> int:
 
     with torch.inference_mode():
         bev = voxelize_occupy(pts_d, cfg.voxel_size, cfg.area_extents)
-        model_ms = _time_ms(lambda: model(bev, trans_d, amask_d), iters=100)
-        raw = agents_to_batch(model(bev, trans_d, amask_d)["head_raw"])
+        model_ms = _time_ms(lambda: model(bev, trans_d, amask_d, store_bf16=True), iters=100)
+        raw = agents_to_batch(model(bev, trans_d, amask_d, store_bf16=True)["head_raw"])
 
         def nms():
             s, d = packed_scores_and_deltas(raw, cfg.num_anchors, cfg.box_code_size)
@@ -376,6 +392,106 @@ def main(argv) -> int:
             predict(model, pts_d, trans_d, amask_d, anchors, cfg)
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+    # 7. KD training at full width, then the trained student's predict
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, get_bev, make_train_step
+
+    t0 = time.perf_counter()
+    tb = batch_to_device(example_train_batch(cfg, BATCH, AGENTS, seed=2))
+    n_pos = int((tb["reg_pos_idx"] < np.prod(cfg.bev_shape[:2]) * cfg.num_anchors).sum())
+    print(f"train batch: {n_pos} positive anchors, bev shipped as {tuple(tb['bev_packed'].shape)} uint8, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    student = build_model("disco", cfg, seed=0, kd_flag=True)
+    teacher = build_model("teacher", cfg, seed=1)
+    t_state = {k: v.clone() for k, v in teacher.state_dict().items()}
+    stats0 = {k: v.clone() for k, v in student.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    kd_step = make_train_step(student, cfg, create_train_state(student), teacher=teacher, kd_flag=True)
+    history = [kd_step(tb) for _ in range(3)]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_windows = []
+    for _ in range(5):  # 5 windows of 5 steps on the same batch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            history.append(kd_step(tb))
+        end.record()
+        torch.cuda.synchronize()
+        step_windows.append(start.elapsed_time(end) / 5)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = {k: torch.stack([h[k] for h in history]).cpu() for k in history[0]}
+    if set(hist) != {"loss", "cls_loss", "reg_loss", "kd_loss", "grad_norm"}:
+        raise AssertionError(f"train step metrics {sorted(hist)}")
+    bad = [k for k, v in hist.items() if not torch.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"non-finite train metrics: {bad}")
+    if not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError(f"loss did not fall: {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}")
+    sd = student.state_dict()
+    if all(torch.equal(sd[k], v) for k, v in stats0.items()):
+        raise AssertionError("the student's BatchNorm running statistics did not move")
+    changed = [k for k, v in teacher.state_dict().items() if not torch.equal(v, t_state[k])]
+    if changed:
+        raise AssertionError(f"the frozen teacher changed: {changed[:5]}")
+    train_ms = sorted(step_windows)[2]
+    print(f"train: {len(history)} KD steps, loss {hist['loss'][0]:.2f} -> {hist['loss'][-1]:.2f} "
+          f"(cls {hist['cls_loss'][-1]:.4f}, reg {hist['reg_loss'][-1]:.4f}, kd {hist['kd_loss'][-1]:.6f}, "
+          f"grad_norm {hist['grad_norm'][-1]:.1f}); metrics finite, BN statistics moved, teacher unchanged")
+    print(f"train: {train_ms:.3f} ms per KD step of {BATCH} scenes, {BATCH * 1e3 / train_ms:.2f} scenes/s "
+          f"(median of 5 windows of 5 steps: " + ", ".join(f"{w:.3f}" for w in step_windows)
+          + f" ms), peak memory {train_peak:.2f} GiB")
+    plain = build_model("disco", cfg, seed=0)
+    plain_step = make_train_step(plain, cfg, create_train_state(plain))
+    plain_ms = _time_ms(lambda: plain_step(tb), iters=10)
+    bev_teacher = get_bev(tb, "bev_teacher", cfg)
+    with torch.no_grad():
+        teacher_ms = _time_ms(lambda: teacher(bev_teacher, None, tb["agent_mask"]), iters=10)
+    del plain, plain_step
+    print(f"train breakdown ms: plain step (KD off) {plain_ms:.3f}; KD step with teacher re-forward "
+          f"{train_ms:.3f} (+{train_ms - plain_ms:.3f}); teacher forward alone {teacher_ms:.3f}")
+    if "--profile" in argv:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kd_step(tb)
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+    student.eval()
+    voxelize_occupy.launches = 0
+    rotated_iou_matrix.launches = 0
+    s_boxes, s_scores, s_keep = predict(student, pts_d, trans_d, amask_d, anchors, cfg)
+    torch.cuda.synchronize()
+    train_launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
+    if min(train_launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched by the trained model's predict: {train_launches}")
+    pb, ps, pk = predict(student, pts_d, trans_d, amask_d, anchors, cfg,
+                         voxelize=voxelize_occupy_plain, iou=rotated_iou_matrix_plain)
+    if not torch.equal(s_keep, pk):
+        raise AssertionError(f"trained model: keep masks differ from the plain ops in {int((s_keep != pk).sum())} slots")
+    s_err = max((s_boxes - pb).abs().max().item(), (s_scores - ps).abs().max().item())
+    if not (torch.isfinite(s_boxes).all() and s_err <= 1e-4):
+        raise AssertionError(f"trained model vs plain pipeline: err {s_err}")
+    print(f"trained predict: launches {train_launches}, {int(s_keep.sum())} kept; vs plain ops: keep equal, "
+          f"err {s_err:.3e}")
+
+    # 8. one KD step on the card against the CPU, float32
+    small = tiny_config(64, compute_dtype="float32", head_raw_dtype="float32")
+    host = example_train_batch(small, 2, 3, seed=3, occupancy=(0.05, 0.1), boxes_per_frame=4)
+    steps = {}
+    for name in ("cuda", "cpu"):
+        s_model = build_model("disco", small, device=name, seed=0, kd_flag=True)
+        s_teacher = build_model("teacher", small, device=name, seed=1)
+        step = make_train_step(s_model, small, create_train_state(s_model), teacher=s_teacher, kd_flag=True)
+        b = batch_to_device(host, name)
+        steps[name] = [{k: float(v) for k, v in step(b).items()} for _ in range(2)]
+    (g1, g2), (c1, c2) = steps["cuda"], steps["cpu"]
+    rel = {k: abs(g1[k] - c1[k]) / abs(c1[k]) for k in c1}
+    rel2 = abs(g2["loss"] - c2["loss"]) / abs(c2["loss"])
+    if max(rel.values()) > 1e-4 or rel2 > 1e-3:
+        raise AssertionError(f"card vs CPU KD step: relative differences {rel}, second loss {rel2}")
+    print("card vs CPU KD step (f32, 64-grid): " + ", ".join(f"{k} {g1[k]:.6g} ({rel[k]:.1e})" for k in sorted(c1))
+          + f"; second loss {g2['loss']:.6g} ({rel2:.1e}); limits 1e-4, 1e-3")
 
     kernels = [
         {

@@ -1,4 +1,5 @@
-"""Carrying weights into the port: from flax variables and from ``.pth`` exports.
+"""Carrying weights into the port (from flax variables and ``.pth`` exports)
+and out of it (``save_pth``, which the JAX package's ``load_pth`` reads).
 
 The JAX package exports the reference checkpoint format (``save_pth``): a flat
 torch ``state_dict`` whose names come from the flax parameter paths by the
@@ -74,6 +75,29 @@ def load_state_dict_strict(model: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.
     if missing or unexpected:
         raise KeyError(f"state_dict mismatch: missing={missing} unexpected={unexpected}")
     return model
+
+
+def save_pth(path: str, model: nn.Module, optimizer: torch.optim.Optimizer, epoch: int, loss: float = 0.0) -> None:
+    """Write the reference checkpoint dict ``{'epoch', 'model_state_dict',
+    'optimizer_state_dict', 'loss'}``, tensors on the CPU. The model's keys
+    are the ones the JAX package's ``load_pth`` looks up; its
+    ``num_batches_tracked`` counters ride along unread."""
+    def cpu(t):
+        return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+
+    opt = optimizer.state_dict()
+    torch.save(
+        {
+            "epoch": int(epoch),
+            "model_state_dict": {k: cpu(v) for k, v in model.state_dict().items()},
+            "optimizer_state_dict": {
+                "state": {i: {k: cpu(v) for k, v in s.items()} for i, s in opt["state"].items()},
+                "param_groups": opt["param_groups"],
+            },
+            "loss": float(loss),
+        },
+        path,
+    )
 
 
 def load_pth(model: nn.Module, path: str) -> nn.Module:

@@ -1,11 +1,11 @@
 """Configuration of the PyTorch port: the reference geometry and model widths.
 
 The port's own copy of the JAX package's ``Config`` (the port imports nothing
-of that package). It keeps the fields the inference path reads plus the
-derived geometry. The TPU layout knobs (``block_space``, ``block_out``,
-``block_out_dec1``) are left out: they are exact rewrites of the same convs
-for the TPU's matrix unit and change no parameter, so the port always runs
-the natural conv layout.
+of that package). It keeps the fields the inference and training paths read
+plus the derived geometry. The TPU layout knobs (``block_space``,
+``block_out``, ``block_out_dec1``) are left out: they are exact rewrites of
+the same convs for the TPU's matrix unit and change no parameter, so the port
+always runs the natural conv layout.
 
 Geometry: voxel 0.25x0.25x0.4 m over x,y in [-32, 32] m and z in [-3, 2] m, a
 256x256x13 binary BEV occupancy grid; 6 rotated anchors per cell with a
@@ -45,6 +45,13 @@ class Config:
     box_code_size: int = 6
     num_classes: int = 2
 
+    # Target assignment: an anchor is positive at IoU >= pos_iou_threshold
+    # with its best gt (and each gt's best anchor is forced positive).
+    pos_iou_threshold: float = 0.4
+
+    # Positive anchors per agent-frame in the sparse target encoding.
+    max_pos_anchors: int = 2048
+
     score_threshold: float = 0.3
     nms_iou_threshold: float = 0.01
     nms_top_k: int = 256
@@ -54,6 +61,18 @@ class Config:
 
     # Fusion stage index (``--layer``); 3 fuses 32x32x256 maps at the 256 grid.
     fusion_layer: int = 3
+
+    # Loss weights: cls + reg (focal, smooth-L1) + kd_weight * KD feature MSE.
+    cls_weight: float = 1.0
+    reg_weight: float = 2.0
+    kd_weight: float = 100000.0
+    focal_gamma: float = 2.0
+    smooth_l1_sigma: float = 3.0
+
+    # Train on the fp32 packed head tensor (ops/losses.py packed_det_losses)
+    # when sparse targets are given; False takes the (B, A, H, W, NA, .)
+    # cls/reg views, the oracle path.
+    packed_loss: bool = True
 
     # "bfloat16": conv inputs and weights in bf16, accumulation and BatchNorm
     # in fp32. "float32": the exact mode the parity tests run.

@@ -6,16 +6,22 @@ handled channel-last without copies.
 
 ``compute_dtype`` "bfloat16" casts conv inputs and weights to bf16 and keeps
 accumulation and BatchNorm arithmetic in fp32. A conv's output is bf16, as the
-JAX package's bf16 convs return it, and a ConvBNRelu stores its result in
-bf16 (see ``ConvBNRelu.forward``). The split 1x1 conv of the fusion scorer and the
+JAX package's bf16 convs return it. A ConvBNRelu returns fp32, as the JAX
+package's does, unless the caller passes ``store_bf16`` in eval mode (the
+``predict`` path does), where the bf16 mode stores it in bf16 (see
+``ConvBNRelu.forward``). The split 1x1 conv of the fusion scorer and the
 detection heads keep their fp32 accumulator unrounded, as the JAX package's
 ``preferred_element_type=float32`` dots do: they multiply bf16-rounded
 operands in fp32 (a product of two bf16 values is exact in fp32, and TF32 is
 off). "float32" is the exact mode.
 
-BatchNorm runs on its running statistics only: the batch-statistics branch
-(with the fusion scorer's pair mask) belongs to training, which the port does
-not have yet, so a module in training mode raises.
+``module.train()`` selects BatchNorm on batch statistics, ``.eval()`` on the
+running statistics; one module tree serves both. In training the statistics
+are flax's: the biased variance normalizes and updates the running variance
+(momentum 0.9 in flax's convention), where ``nn.BatchNorm2d`` would update it
+with the unbiased one. The fusion scorer's BatchNorms count only the rows of
+real (receiver, sender) pairs (``pair_mask``); the conv stack's count every
+row, padded agents' zero BEVs included, as the JAX package's do.
 
 Module and parameter names give the JAX package's ``save_pth`` keys, e.g.
 ``stpn.stages_1.ConvBNRelu_0.weight``, ``...BatchNorm_0.running_var``,
@@ -24,13 +30,16 @@ Module and parameter names give the JAX package's ``save_pth`` keys, e.g.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from disconet_tpu_torch.config import Config
+
+# flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch statistic
+MOMENTUM = 0.9
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -44,10 +53,51 @@ def bn_channels_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return (x - bn.running_mean) * scale + bn.bias
 
 
+@torch.no_grad()
+def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    bn.running_mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
+    bn.running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Batch-statistics BatchNorm of (N, C, H, W) fp32 ``y``; updates ``bn``'s
+    running statistics with the biased variance.
+
+    ``F.batch_norm`` normalizes with the biased variance and, given running
+    buffers, blends the unbiased one into them. With momentum 1 into fresh
+    buffers it hands back the batch mean and the unbiased variance from its
+    own reduction, and n/(n-1) is taken off here.
+    """
+    C = y.shape[1]
+    n = y.numel() // C
+    mean = torch.zeros(C, device=y.device)
+    var = torch.zeros(C, device=y.device)
+    out = F.batch_norm(y, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    _update_running(bn, mean, var * ((n - 1) / n))
+    return out
+
+
+def masked_batch_norm_train(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Batch-statistics BatchNorm over the last axis of a channel-last fp32
+    tensor (N, ..., C) whose statistics count only the rows where ``mask``
+    (N,) holds; updates ``bn``'s running statistics.
+
+    As the JAX package's ``MaskedBatchNorm``: ``var = E[x^2] - E[x]^2`` over
+    ``sum(mask) * prod(spatial)`` elements, with no clip at 0.
+    """
+    red = tuple(range(x.dim() - 1))
+    m = mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+    cnt = m.sum() * float(x[0, ..., 0].numel())
+    mean = (x * m).sum(red) / cnt
+    var = (x.square() * m).sum(red) / cnt - mean.square()
+    _update_running(bn, mean, var)
+    return bn.weight * (x - mean) * torch.rsqrt(var + bn.eps) + bn.bias
+
+
 class ConvBNRelu(nn.Module):
     """k x k conv (no bias, symmetric k//2 padding) -> BatchNorm -> ReLU.
 
-    BatchNorm is eps 1e-5 and torch momentum 0.1 (flax momentum 0.9).
+    BatchNorm is eps 1e-5, momentum 0.9 in flax's convention (torch's 0.1).
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, bf16: bool = True):
@@ -58,24 +108,21 @@ class ConvBNRelu(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def _eval_only(self):
-        if self.training:
-            raise NotImplementedError(
-                "batch-statistics BatchNorm is not ported yet; call .eval()"
-            )
+    def forward(self, x: torch.Tensor, store_bf16: bool = False) -> torch.Tensor:
+        """(N, Cin, H, W) -> (N, Cout, H', W'), fp32; bf16 in the bf16 mode
+        when ``store_bf16`` is set in eval mode.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, Cin, H, W) -> (N, Cout, H', W'), bf16 in the bf16 mode.
-
-        In the bf16 mode BatchNorm reads the conv's bf16 output and computes
-        in fp32 with fp32 parameters, and the result is stored in bf16: the
-        next conv, the scorer's dots and the heads cast it to bf16 anyway, so
-        storing it rounded changes no value they see and halves the bytes of
-        every elementwise pass. The one other consumer, the pose warp at the
-        fusion layer, then samples bf16 maps, as the JAX package does at
-        inference on the TPU.
+        BatchNorm reads the conv's output (bf16 in the bf16 mode) and
+        computes in fp32 with fp32 parameters. With ``store_bf16`` (detection,
+        ``pipeline.detect``) the eval-mode bf16 mode stores the result in
+        bf16: the next conv, the scorer's dots and the heads cast it to bf16
+        anyway, so storing it rounded changes no value they see and halves
+        the bytes of every elementwise pass. The one other consumer, the pose
+        warp at the fusion layer, then samples bf16 maps, as the JAX package
+        does at inference on the TPU. Training ignores the flag; the frozen
+        teacher and evaluation leave it off, so the KD taps that the feature
+        MSE reads at ``kd_weight`` 1e5 are fp32.
         """
-        self._eval_only()
         if self.bf16:
             y = F.conv2d(
                 x.to(torch.bfloat16), self.weight.to(torch.bfloat16),
@@ -84,6 +131,10 @@ class ConvBNRelu(nn.Module):
         else:
             y = F.conv2d(x.float(), self.weight, stride=self.stride, padding=self.padding)
         bn = self.BatchNorm_0
+        if self.training:
+            return F.relu_(batch_norm_train(y.float(), bn))
+        if not store_bf16:
+            y = y.float()
         y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
         return F.relu_(y)
 
@@ -93,29 +144,35 @@ class ConvBNRelu(nn.Module):
             return _round_bf16(x) @ _round_bf16(w).t()
         return x.float() @ w.t()
 
-    def forward_last(self, x: torch.Tensor) -> torch.Tensor:
-        """1x1 conv on a channel-last (..., Cin) tensor -> (..., Cout)."""
-        self._eval_only()
+    def _bn_relu_last(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return F.relu(masked_batch_norm_train(y, mask, self.BatchNorm_0))
+        return F.relu(bn_channels_last(y, self.BatchNorm_0))
+
+    def forward_last(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """1x1 conv on a channel-last (N, ..., Cin) tensor -> (N, ..., Cout),
+        fp32; in training the BatchNorm statistics count the rows where
+        ``mask`` (N,) holds."""
         y = self._dot(x, self.weight[:, :, 0, 0])
         if self.bf16:  # a natural bf16 conv returns bf16
             y = _round_bf16(y)
-        return F.relu(bn_channels_last(y, self.BatchNorm_0))
+        return self._bn_relu_last(y, mask)
 
-    def forward_pair1x1(self, shared: torch.Tensor, per_item: torch.Tensor) -> torch.Tensor:
+    def forward_pair1x1(self, shared: torch.Tensor, per_item: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The 1x1 conv of concat(broadcast(shared), per_item), channel-last.
 
         ``shared`` (N, h, w, Cs) and ``per_item`` (N*S, h, w, Cp) -> (N*S, h, w, Cout).
         The kernel is split along its input axis, so the shared half projects
-        once per group of S rows and the concat is never built.
+        once per group of S rows and the concat is never built. ``mask``
+        (N*S,) as in :meth:`forward_last`.
         """
-        self._eval_only()
         Cs = shared.shape[-1]
         w = self.weight[:, :, 0, 0]
         s_proj = self._dot(shared, w[:, :Cs])
         p_proj = self._dot(per_item, w[:, Cs:])
         N, h, wd, Fo = s_proj.shape
         y = (s_proj[:, None] + p_proj.reshape(N, -1, h, wd, Fo)).reshape(-1, h, wd, Fo)
-        return F.relu(bn_channels_last(y, self.BatchNorm_0))
+        return self._bn_relu_last(y, mask)
 
 
 class _EncoderStage(nn.Module):
@@ -124,8 +181,8 @@ class _EncoderStage(nn.Module):
         self.ConvBNRelu_0 = ConvBNRelu(cin, cout, stride=stride, bf16=bf16)
         self.ConvBNRelu_1 = ConvBNRelu(cout, cout, bf16=bf16)
 
-    def forward(self, x):
-        return self.ConvBNRelu_1(self.ConvBNRelu_0(x))
+    def forward(self, x, store_bf16: bool = False):
+        return self.ConvBNRelu_1(self.ConvBNRelu_0(x, store_bf16), store_bf16)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -141,9 +198,9 @@ class _DecoderStage(nn.Module):
         self.ConvBNRelu_0 = ConvBNRelu(c_deep + c_skip, cout, bf16=bf16)
         self.ConvBNRelu_1 = ConvBNRelu(cout, cout, bf16=bf16)
 
-    def forward(self, x, skip):
+    def forward(self, x, skip, store_bf16: bool = False):
         x = torch.cat([upsample2x(x), skip.to(x.dtype)], dim=1)
-        return self.ConvBNRelu_1(self.ConvBNRelu_0(x))
+        return self.ConvBNRelu_1(self.ConvBNRelu_0(x, store_bf16), store_bf16)
 
 
 class STPN(nn.Module):
@@ -163,20 +220,28 @@ class STPN(nn.Module):
             )
         self.head_conv = ConvBNRelu(self.channels[0], head_channels, bf16=bf16)
 
-    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def encode(self, x: torch.Tensor, store_bf16: bool = False) -> List[torch.Tensor]:
         """All encoder stages; returns the list of stage outputs."""
         feats = []
         for i in range(len(self.channels)):
-            x = getattr(self, f"stages_{i}")(x)
+            x = getattr(self, f"stages_{i}")(x, store_bf16)
             feats.append(x)
         return feats
 
-    def decode(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Skip decoder over the stage list -> the (N, head_channels, H, W) head input."""
+    def decode(
+        self, feats: Sequence[torch.Tensor], store_bf16: bool = False
+    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Skip decoder over the stage list -> (the (N, head_channels, H, W)
+        head input, the KD taps): the taps are the decoder stages' outputs
+        coarse to fine, then the head input."""
         x = feats[-1]
+        taps = []
         for i in reversed(range(len(self.channels) - 1)):
-            x = getattr(self, f"dec_{i}")(x, feats[i])
-        return self.head_conv(x)
+            x = getattr(self, f"dec_{i}")(x, feats[i], store_bf16)
+            taps.append(x)
+        head_in = self.head_conv(x, store_bf16)
+        taps.append(head_in)
+        return head_in, taps
 
 
 class DetectionHeads(nn.Module):
@@ -199,8 +264,9 @@ class DetectionHeads(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (N, C, H, W) -> cls (N, H, W, NA, NC), reg (N, H, W, NA, code),
-        both fp32, and the packed (N, H, W, NA*NC + NA*code) tensor in
-        ``raw_dtype``."""
+        both fp32, the packed (N, H, W, NA*NC + NA*code) tensor in
+        ``raw_dtype`` (what the NMS reads) and the same unrounded in fp32
+        (what the packed loss trains on)."""
         N, C, H, W = x.shape
         NA, NC, code = self.na, self.nc, self.code
         n_cls = NA * NC
@@ -216,7 +282,7 @@ class DetectionHeads(nn.Module):
         raw = raw + b
         cls = raw[..., :n_cls].reshape(N, H, W, NC, NA).transpose(-1, -2)
         reg = raw[..., n_cls:].reshape(N, H, W, NA, code)
-        return cls, reg, raw.to(self.raw_dtype)
+        return cls, reg, raw.to(self.raw_dtype), raw
 
 
 def make_stpn(config: Config) -> STPN:

@@ -1,4 +1,5 @@
-"""Model factory for the ``--com`` surface. This slice of the port has DiscoNet."""
+"""Model factory for the ``--com`` surface: DiscoNet, FaFNet (``""``,
+``"lowerbound"``, ``"upperbound"``, ``"faf"``) and TeacherNet (``"teacher"``)."""
 
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.models.backbone import ConvBNRelu
 from disconet_tpu_torch.models.disco_net import DiscoNet
+from disconet_tpu_torch.models.faf_net import FaFNet, TeacherNet
 
 _FUSION = {"disco": DiscoNet}
+_SINGLE_AGENT = ("", "lowerbound", "upperbound", "faf")
 
 
 def init_parameters(model: nn.Module, seed: int = 0) -> None:
@@ -38,21 +41,30 @@ def build_model(
     layer: int = 3,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
+    kd_flag: bool = False,
 ) -> nn.Module:
     """The eval-mode model for ``com`` on ``device`` (CUDA unless the caller
-    names another), with weights drawn from ``seed``.
+    names another), with weights drawn from ``seed``. ``kd_flag`` adds the KD
+    taps to the outputs (TeacherNet always has them).
 
     Sets the process's TF32 switches off, for both cuDNN convolutions and
     matrix products: the float32 mode is then exact float32, and the bf16
     mode's fp32 products of bf16-rounded operands stay exact.
     """
-    if com not in _FUSION:
-        raise ValueError(f"unknown or not yet ported --com '{com}' (ported: {sorted(_FUSION)})")
+    com = (com or "").lower()
+    if com not in _FUSION and com not in _SINGLE_AGENT and com != "teacher":
+        ported = sorted(_FUSION) + list(_SINGLE_AGENT) + ["teacher"]
+        raise ValueError(f"unknown or not yet ported --com '{com}' (ported: {ported})")
     if config.compute_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got {config.compute_dtype!r}")
     dev = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = _FUSION[com](config, layer=layer)
+    if com == "teacher":
+        model = TeacherNet(config)
+    elif com in _SINGLE_AGENT:
+        model = FaFNet(config, kd_flag=kd_flag)
+    else:
+        model = _FUSION[com](config, layer=layer, kd_flag=kd_flag)
     init_parameters(model, seed)
     return model.to(dev).eval()

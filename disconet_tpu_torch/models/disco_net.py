@@ -25,15 +25,18 @@ class PixelWeightedFusion(nn.Module):
         self.ConvBNRelu_2 = ConvBNRelu(32, 8, kernel=1, bf16=bf16)
         self.Conv_0 = nn.Conv2d(8, 1, 1)
 
-    def forward(self, ego: torch.Tensor, warped: torch.Tensor) -> torch.Tensor:
+    def forward(self, ego: torch.Tensor, warped: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tensor:
         """``ego`` (N, h, w, C) per receiver and ``warped`` (N*S, h, w, C)
         (receiver, sender) pairs, channel-last -> scores (N*S, h, w) float32.
 
         The first conv runs split (``forward_pair1x1``): the ego half of its
         kernel projects once per receiver and cat(ego, warped) is never built.
+        ``pair_mask`` (N*S,) marks the real pairs, the rows the BatchNorm
+        statistics count in training.
         """
-        x = self.ConvBNRelu_0.forward_pair1x1(ego, warped)
-        x = self.ConvBNRelu_2.forward_last(self.ConvBNRelu_1.forward_last(x))
+        x = self.ConvBNRelu_0.forward_pair1x1(ego, warped, pair_mask)
+        x = self.ConvBNRelu_1.forward_last(x, pair_mask)
+        x = self.ConvBNRelu_2.forward_last(x, pair_mask)
         w = self.Conv_0.weight[:, :, 0, 0]  # (1, 8), fp32 as in the JAX model
         return (x.float() @ w.t() + self.Conv_0.bias)[..., 0]
 
@@ -41,16 +44,17 @@ class PixelWeightedFusion(nn.Module):
 class DiscoNet(IntermediateFusionModel):
     """Intermediate-collaboration student with DiscoGraph fusion."""
 
-    def __init__(self, config, layer: int = 3):
-        super().__init__(config, layer)
+    def __init__(self, config, layer: int = 3, kd_flag: bool = False):
+        super().__init__(config, layer, kd_flag)
         self.weight_net = PixelWeightedFusion(
             self.layer_channels, bf16=config.compute_dtype == "bfloat16"
         )
 
     def fuse(self, feats_k, warped, agent_mask):
         B, Ar, As, h, w, C = warped.shape
+        pair_mask = (agent_mask[:, :, None] & agent_mask[:, None, :]).reshape(B * Ar * As)
         scores = self.weight_net(
-            feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C)
+            feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C), pair_mask
         ).reshape(B, Ar, As, h, w)
         weights = sender_softmax(scores, agent_mask)
         return (weights[..., None] * warped).sum(dim=2)

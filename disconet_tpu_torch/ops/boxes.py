@@ -27,6 +27,29 @@ def make_anchors(config: Config) -> np.ndarray:
     return anchors
 
 
+def encode_boxes(gt: np.ndarray, anchors: np.ndarray) -> np.ndarray:
+    """Gt boxes (..., 5) against anchors (..., 5) -> deltas (..., 6), float64
+    on the host; the inverse of :func:`decode_boxes`.
+
+    dx = (gx - ax) / d_a, dy = (gy - ay) / d_a with d_a = sqrt(aw^2 + al^2);
+    dw = log(gw / aw), dl = log(gl / al); (sin, cos) of the gt heading.
+    """
+    gt = np.asarray(gt, np.float64)
+    anchors = np.asarray(anchors, np.float64)
+    da = np.sqrt(anchors[..., 2] ** 2 + anchors[..., 3] ** 2)
+    return np.stack(
+        [
+            (gt[..., 0] - anchors[..., 0]) / da,
+            (gt[..., 1] - anchors[..., 1]) / da,
+            np.log(gt[..., 2] / anchors[..., 2]),
+            np.log(gt[..., 3] / anchors[..., 3]),
+            np.sin(gt[..., 4]),
+            np.cos(gt[..., 4]),
+        ],
+        axis=-1,
+    )
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """Deltas (..., 6) against anchors (..., 5) -> boxes (..., 5).
 

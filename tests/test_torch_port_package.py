@@ -3,8 +3,8 @@
 * importing the port pulls in no JAX and nothing of the JAX package;
 * an entry point without ``device="cpu"`` raises when there is no GPU;
 * on a GPU (marker ``gpu``, skipped without one), each CUDA kernel matches its
-  plain PyTorch version. ``python3 chip_smoke.py`` runs the same checks at the
-  main path's full shapes.
+  plain PyTorch version, and a bf16 KD train step runs. ``python3
+  chip_smoke.py`` runs the same checks at the main path's full shapes.
 """
 
 import os
@@ -44,12 +44,22 @@ def test_port_imports_no_jax():
 
 
 def test_no_silent_cpu(monkeypatch):
+    """Every entry point that picks a device raises without a GPU unless the
+    caller asks for the CPU. The step builders run where ``build_model`` put
+    the model and the batch where ``batch_to_device`` put it."""
+    from disconet_tpu_torch.training import batch_to_device
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    for com in ("disco", "teacher", ""):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(com, tiny_config(16))
+    batch = {"agent_mask": np.ones((1, 2), bool), "bev": np.zeros((1, 2, 4, 4, 13), np.uint8)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model("disco", tiny_config(16))
+        batch_to_device(batch)
     assert resolve_device("cpu").type == "cpu"
+    assert batch_to_device(batch, "cpu")["bev_packed"].device.type == "cpu"
 
 
 @pytest.fixture
@@ -57,6 +67,27 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kd_train_step_on_the_card(cuda):
+    """One bf16 KD step of DiscoNet at the 64-grid: finite metrics, the
+    student's BatchNorm statistics moved, the teacher bit-identical."""
+    from disconet_tpu_torch import example_train_batch
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_train_step
+
+    cfg = tiny_config(64)
+    batch = batch_to_device(example_train_batch(cfg, 2, 3, seed=0, occupancy=(0.05, 0.1), boxes_per_frame=2))
+    model = build_model("disco", cfg, kd_flag=True)
+    teacher = build_model("teacher", cfg, seed=1)
+    t_state = {k: v.clone() for k, v in teacher.state_dict().items()}
+    var0 = model.stpn.stages_0.ConvBNRelu_0.BatchNorm_0.running_var.clone()
+    metrics = make_train_step(model, cfg, create_train_state(model), teacher=teacher, kd_flag=True)(batch)
+    assert set(metrics) == {"loss", "cls_loss", "reg_loss", "kd_loss", "grad_norm"}
+    assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
+    assert not torch.equal(model.stpn.stages_0.ConvBNRelu_0.BatchNorm_0.running_var, var0)
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v, t_state[k]), k
 
 
 @pytest.mark.gpu
