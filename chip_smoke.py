@@ -43,7 +43,22 @@ Phases, each printing its own line; any failure exits non-zero:
    launch counts must rise, keep masks equal to the plain ops';
 8. one KD step on the card against the same step on the CPU, float32
    64-grid, same weights and batch: every metric within rtol 1e-4, the
-   second step's loss within 1e-3.
+   second step's loss within 1e-3;
+9. the detection CLIs at the full ``Config()`` width, in-process, in a
+   temporary directory under ``build/``: ``create_data_det`` writes 2
+   scenes x 4 frames of synthetic data; ``train_codet`` trains the
+   upperbound teacher 1 epoch, then DiscoNet with KD from the teacher's
+   cached features 2 epochs (the ``KD cache:`` line, a finite loss every
+   epoch) and auto-resumes it to epoch 3; ``test_codet`` evaluates epoch 3
+   under torch.profiler with ``--tracking`` (the table parses, its ``#gt``
+   is the dataset's, the IoU kernel ran on every predict batch, the dumps
+   exist), again to time it, and with late fusion and with pose noise.
+   Then a KD step from a float32 cache against the re-forward step on the
+   card (64-grid, rtol 1e-5 on loss and kd_loss), and at full width in
+   bf16 the two steps timed in turns on phase 7's batch. Prints each
+   epoch's scenes/s (loader included) with its share spent waiting on the
+   loader, the cache's MiB and precompute seconds, both steps' ms and
+   ``test_codet``'s scenes/s.
 
 Prints the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -51,10 +66,15 @@ Prints the kernels' JSON line, and as its last line
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
@@ -397,7 +417,8 @@ def main(argv) -> int:
     from disconet_tpu_torch.training import batch_to_device, create_train_state, get_bev, make_train_step
 
     t0 = time.perf_counter()
-    tb = batch_to_device(example_train_batch(cfg, BATCH, AGENTS, seed=2))
+    host7 = example_train_batch(cfg, BATCH, AGENTS, seed=2)
+    tb = batch_to_device(host7)
     n_pos = int((tb["reg_pos_idx"] < np.prod(cfg.bev_shape[:2]) * cfg.num_anchors).sum())
     print(f"train batch: {n_pos} positive anchors, bev shipped as {tuple(tb['bev_packed'].shape)} uint8, "
           f"built in {time.perf_counter() - t0:.2f} s")
@@ -493,6 +514,8 @@ def main(argv) -> int:
     print("card vs CPU KD step (f32, 64-grid): " + ", ".join(f"{k} {g1[k]:.6g} ({rel[k]:.1e})" for k in sorted(c1))
           + f"; second loss {g2['loss']:.6g} ({rel2:.1e}); limits 1e-4, 1e-3")
 
+    cli = _phase9(cfg, host7, tb, kd_step, teacher)
+
     kernels = [
         {
             "name": "voxelize_occupy",
@@ -500,6 +523,8 @@ def main(argv) -> int:
             "source": "disconet_tpu_torch/csrc/voxelize.cu",
             "replaces": "disconet_tpu/ops/pallas/voxelize_pallas.py:121",
             "launches": launches["voxelize"],
+            "path_launches": {"predict": launches["voxelize"], "trained predict": train_launches["voxelize"],
+                              "test_codet": cli["launches"]["voxelize"]},
             "max_abs_err": vox_err,
             "ms": vox_ms,
             "device_ms": vox_dev_ms,
@@ -514,6 +539,8 @@ def main(argv) -> int:
             "source": "disconet_tpu_torch/csrc/rotated_iou.cu",
             "replaces": "disconet_tpu/ops/pallas/rotated_iou_pallas.py:135",
             "launches": launches["rotated_iou"],
+            "path_launches": {"predict": launches["rotated_iou"], "trained predict": train_launches["rotated_iou"],
+                              "test_codet": cli["launches"]["rotated_iou"]},
             "max_abs_err": max(iou_err, main_iou_err),
             "ms": iou_ms,
             "device_ms": iou_dev_ms,
@@ -529,6 +556,204 @@ def main(argv) -> int:
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }))
     return 0
+
+
+class _Frames:
+    """Scene-frames of a host batch as a dataset of the keys the teacher
+    pass reads."""
+
+    def __init__(self, host):
+        self.host = host
+
+    def __len__(self):
+        return len(self.host["agent_mask"])
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        return {"bev_teacher": self.host["bev_teacher"][i], "agent_mask": self.host["agent_mask"][i],
+                "frame_idx": np.int32(i)}
+
+
+def _cli(main, argv):
+    """Run a CLI's ``main(argv)`` in-process; echo its output indented and
+    return (output, result)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    out = buf.getvalue()
+    print("\n".join("    | " + line for line in out.splitlines() if line.strip()))
+    return out, result
+
+
+def _mean_ap_table(out):
+    """{agent label: [mAP@0.5, mAP@0.7, #gt, #det]} of the table in ``out``."""
+    rows = {}
+    for line in out[out.rindex("Evaluated"):].split("\n\n")[0].splitlines():
+        cols = [c.strip() for c in line.split("|")]
+        if len(cols) == 5 and cols[0] != "agent":
+            rows[cols[0]] = [float(cols[1]), float(cols[2]), int(cols[3]), int(cols[4])]
+    if "average" not in rows:
+        raise AssertionError(f"no mAP table in the output:\n{out}")
+    return rows
+
+
+def _epochs(out):
+    """(epoch, loss, scenes/s, loader-wait share) of each ``epoch N done`` line."""
+    rows = re.findall(r"epoch (\d+) done .*?(?<![\w])loss=(\S+).*scenes_per_sec=(\S+)\s+loader_wait_share=(\S+)", out)
+    return [(int(e), float(l), float(s), float(w)) for e, l, s, w in rows]
+
+
+def _phase9(cfg, host7, tb, kd_step, teacher):
+    """The detection CLIs at full width, and the KD cache on the card (see
+    the module docstring). Returns the IoU and voxelize launches of the
+    evaluation run."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from disconet_tpu_torch import build_model, example_train_batch, tiny_config
+    from disconet_tpu_torch.data.dataset import V2XSimDet
+    from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
+    from disconet_tpu_torch.ops.voxelize import voxelize_occupy
+    from disconet_tpu_torch.tools.det import create_data_det, test_codet, train_codet
+    from disconet_tpu_torch.training import (
+        batch_to_device, create_train_state, make_train_step, precompute_teacher_feats, teacher_feat_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cli_", dir=build)
+    grid = ["--grid", str(cfg.bev_shape[0])]
+    try:
+        t0 = time.perf_counter()
+        _cli(create_data_det.main, ["--data", work, "--mode", "synthetic", "--scenes", "2", "--frames", "4", *grid])
+        data, logs = os.path.join(work, "train"), os.path.join(work, "logs")
+        ds = V2XSimDet(data, cfg)
+        n_gt = sum(len(g) for i in range(len(ds)) for g, m in zip(ds[i]["gt_boxes"], ds[i]["agent_mask"]) if m)
+        data_s = time.perf_counter() - t0
+        print(f"cli data: {len(ds)} scene-frames, {int(sum(ds[i]['agent_mask'].sum() for i in range(len(ds))))} "
+              f"agent-frames, {n_gt} gt boxes, written in {data_s:.2f} s")
+        common = ["--data", data, *grid, "--batch", "4", "--logpath", logs, "--log_every", "1"]
+
+        out, _ = _cli(train_codet.main, [*common, "--bound", "upperbound", "--nepoch", "1"])
+        epochs = {"teacher": _epochs(out)}
+        teacher_pth = os.path.join(logs, "upperbound", "epoch_1.pth")
+        if not os.path.isfile(teacher_pth) or len(epochs["teacher"]) != 1:
+            raise AssertionError("the teacher run wrote no epoch_1.pth")
+        student = [*common, "--com", "disco", "--kd_flag", "1", "--resume_teacher", teacher_pth, "--kd_cache", "1"]
+        out, _ = _cli(train_codet.main, [*student, "--nepoch", "2"])
+        cache = re.search(r"KD cache: (\d+) MiB of teacher features precomputed in ([\d.]+)s", out)
+        epochs["student"] = _epochs(out)
+        if not cache or [e[0] for e in epochs["student"]] != [1, 2]:
+            raise AssertionError("the student run printed no KD cache line or not 2 epochs")
+        want_mib = teacher_feat_bytes(cfg, len(ds), batch_size=4) / 2**20
+        if int(cache.group(1)) != round(want_mib):
+            raise AssertionError(f"KD cache {cache.group(1)} MiB, expected {want_mib:.0f}")
+        out, _ = _cli(train_codet.main, [*student, "--nepoch", "3", "--auto_resume_path", logs])
+        epochs["resumed"] = _epochs(out)
+        if "auto-resumed from epoch 2" not in out or [e[0] for e in epochs["resumed"]] != [3]:
+            raise AssertionError("the run did not auto-resume from epoch 2 to epoch 3")
+        resume = os.path.join(logs, "disco_kd", "epoch_3.pth")
+        if not os.path.isfile(resume):
+            raise AssertionError("no epoch_3.pth")
+        bad = [e for run in epochs.values() for e in run if not np.isfinite(e[1])]
+        if bad:
+            raise AssertionError(f"non-finite epoch losses: {bad}")
+
+        evaluate = ["--data", data, *grid, "--com", "disco", "--resume", resume, "--batch", "4", "--logpath", logs]
+        n_batches = -(-len(ds) // 4)
+        voxelize_occupy.launches = 0
+        rotated_iou_matrix.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out, _ = _cli(test_codet.main, [*evaluate, "--tracking"])
+            torch.cuda.synchronize()
+        launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
+        traced = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "rotated_iou_kernel" in e.name)
+        table = _mean_ap_table(out)
+        if launches["rotated_iou"] < n_batches or traced < n_batches:
+            raise AssertionError(f"IoU kernel: {launches['rotated_iou']} launches, {traced} in the trace, "
+                                 f"for {n_batches} predict batches")
+        if table["average"][2] != n_gt:
+            raise AssertionError(f"the table counts {table['average'][2]} gt boxes, the dataset {n_gt}")
+        dump_dir = os.path.join(logs, "disco", "with_rsu", "test", "det_dumps")
+        dumps = os.listdir(dump_dir) if os.path.isdir(dump_dir) else []
+        if not dumps:
+            raise AssertionError("no tracking dumps")
+        print(f"test_codet: launches {launches} for {n_batches} predict batches, {traced} IoU kernels in the "
+              f"trace, {len(dumps)} tracking dumps, #gt {n_gt} as the dataset")
+        out, result = _cli(test_codet.main, evaluate)
+        if _mean_ap_table(out) != table:
+            raise AssertionError("a second evaluation of the same checkpoint gave another table")
+        for extra in (["--apply_late_fusion", "1"], ["--pose_noise_std", "0.2"]):
+            out, _ = _cli(test_codet.main, [*evaluate, *extra])
+            if _mean_ap_table(out)["average"][2] != n_gt:
+                raise AssertionError(f"{extra}: wrong #gt")
+        for name, run in epochs.items():
+            for e, loss, sps, wait in run:
+                print(f"cli epochs: {name} epoch {e}: {sps:.2f} scenes/s, loader wait {100 * wait:.1f}% of the "
+                      f"epoch, loss {loss:.4f}")
+        print(f"cli KD cache: {cache.group(1)} MiB, precomputed in {cache.group(2)} s; "
+              f"test_codet {result['scenes_per_s']:.2f} scenes/s (loader, predict and mAP bookkeeping)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # a KD step from a float32 cache against the re-forward step, on the card
+    small = tiny_config(64, compute_dtype="float32", head_raw_dtype="float32")
+    host = example_train_batch(small, 2, 3, seed=4, occupancy=(0.05, 0.1), boxes_per_frame=4)
+    s_teacher = build_model("teacher", small, seed=1)
+    tables = precompute_teacher_feats(s_teacher, _Frames(host), small, batch_size=2, dtype=torch.float32)
+    host["frame_idx"] = np.array([1, 0], np.int32)
+    host["bev_teacher"] = host["bev_teacher"][::-1].copy()
+    host["agent_mask"] = host["agent_mask"][::-1].copy()
+    b = batch_to_device(host)
+    first = {}
+    for name, kw in (("re-forward", dict(teacher=s_teacher)), ("cache", dict(kd_from_cache=tables))):
+        m = build_model("disco", small, seed=0, kd_flag=True)
+        first[name] = {k: float(v) for k, v in
+                       make_train_step(m, small, create_train_state(m), kd_flag=True, **kw)(b).items()}
+    rel = {k: abs(first["cache"][k] - first["re-forward"][k]) / abs(first["re-forward"][k]) for k in ("loss", "kd_loss")}
+    if max(rel.values()) > 1e-5:
+        raise AssertionError(f"KD step from the float32 cache vs re-forward: {rel}")
+    print("card KD step from a float32 cache vs re-forward (64-grid): "
+          + ", ".join(f"{k} {first['cache'][k]:.6g} ({v:.1e})" for k, v in rel.items()) + "; limit 1e-5")
+
+    # full width, bf16: the two KD steps in turns on phase 7's batch
+    t0 = time.perf_counter()
+    full = precompute_teacher_feats(teacher, _Frames(host7), cfg, batch_size=BATCH)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    tb = dict(tb, frame_idx=torch.arange(BATCH, dtype=torch.int32, device=tb["agent_mask"].device))
+    cached = build_model("disco", cfg, seed=0, kd_flag=True)
+    cache_step = make_train_step(cached, cfg, create_train_state(cached), kd_flag=True, kd_from_cache=full)
+    for _ in range(3):
+        cache_step(tb)
+    windows = {"re-forward": [], "cache": []}
+    for _ in range(5):
+        for name, step in (("re-forward", kd_step), ("cache", cache_step)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                metrics = step(tb)
+            end.record()
+            torch.cuda.synchronize()
+            windows[name].append(start.elapsed_time(end) / 5)
+            if not all(torch.isfinite(v).item() for v in metrics.values()):
+                raise AssertionError(f"non-finite metrics in the {name} step")
+    med = {k: sorted(v)[2] for k, v in windows.items()}
+    print(f"cli KD step ms (median of 5 windows of 5, in turns): re-forward {med['re-forward']:.3f}, "
+          f"from the cache {med['cache']:.3f} ({BATCH * 1e3 / med['cache']:.2f} scenes/s); windows "
+          + "; ".join(f"{k} " + ", ".join(f"{w:.3f}" for w in v) for k, v in windows.items())
+          + f"; {BATCH} rows of {sum(t[0].numel() for t in full) * 2 / 2**20:.0f} MiB precomputed in {pre_s:.2f} s")
+    # the device's share of a step: its summed CUDA time over the step's median time
+    busy = {name: _device_ms(lambda: step(tb), iters=5, warmup=1)[0]
+            for name, step in (("re-forward", kd_step), ("cache", cache_step))}
+    print("cli KD step device ms (torch.profiler, summed CUDA time of one step): "
+          + ", ".join(f"{k} {v:.3f} ({100 * v / med[k]:.1f}% of {med[k]:.3f} ms)" for k, v in busy.items()))
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s, {data_s:.1f} s of it writing the data")
+    return {"launches": launches}
 
 
 if __name__ == "__main__":

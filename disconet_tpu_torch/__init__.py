@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of disconet_tpu: DiscoNet inference and training on NVIDIA Hopper.
+"""PyTorch/CUDA port of disconet_tpu: DiscoNet inference and training on NVIDIA
+Hopper, with the data tools and detection CLIs (``tools/det/``).
 
 Plain tensor code is PyTorch; the two kernels the JAX package wrote in Pallas
 (the occupancy voxelizer and the rotated-IoU matrix) are hand-written CUDA in

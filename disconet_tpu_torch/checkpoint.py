@@ -1,5 +1,7 @@
 """Carrying weights into the port (from flax variables and ``.pth`` exports)
-and out of it (``save_pth``, which the JAX package's ``load_pth`` reads).
+and out of it (``save_pth``, which the JAX package's ``load_pth`` reads), and
+the training CLI's per-epoch checkpoints (:class:`CheckpointIO`,
+:func:`restore_or_die`).
 
 The JAX package exports the reference checkpoint format (``save_pth``): a flat
 torch ``state_dict`` whose names come from the flax parameter paths by the
@@ -7,12 +9,18 @@ rules below (the port keeps its own copy of them). Conv kernels go HWIO ->
 OIHW, dense kernels (in, out) -> (out, in), BatchNorm {scale, bias, mean, var}
 -> {weight, bias, running_mean, running_var}. The port's module names are
 chosen so that these keys load strictly.
+
+The JAX package keeps its per-epoch checkpoints with orbax, which the port
+does not read (orbax is a JAX library): the port keeps its own under
+``{logdir}/ckpt/`` as ``{N}.pth`` files of the same dict, Adam's state
+included, and reads those and any ``.pth`` export.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,32 +85,114 @@ def load_state_dict_strict(model: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.
     return model
 
 
-def save_pth(path: str, model: nn.Module, optimizer: torch.optim.Optimizer, epoch: int, loss: float = 0.0) -> None:
+def save_pth(
+    path: str,
+    model: Union[nn.Module, Dict[str, torch.Tensor]],
+    optimizer: Optional[torch.optim.Optimizer] = None,
+    epoch: int = 0,
+    loss: float = 0.0,
+) -> None:
     """Write the reference checkpoint dict ``{'epoch', 'model_state_dict',
-    'optimizer_state_dict', 'loss'}``, tensors on the CPU. The model's keys
+    'optimizer_state_dict', 'loss'}``, tensors on the CPU, through a
+    temporary file and a rename, so a reader never sees half a file.
+    ``model`` is a module or its ``state_dict``; without an ``optimizer`` the
+    optimizer entry is ``{}``, as the JAX package writes it. The model's keys
     are the ones the JAX package's ``load_pth`` looks up; its
     ``num_batches_tracked`` counters ride along unread."""
     def cpu(t):
         return t.detach().cpu() if isinstance(t, torch.Tensor) else t
 
-    opt = optimizer.state_dict()
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    opt = {}
+    if optimizer is not None:
+        o = optimizer.state_dict()
+        opt = {
+            "state": {i: {k: cpu(v) for k, v in st.items()} for i, st in o["state"].items()},
+            "param_groups": o["param_groups"],
+        }
     torch.save(
         {
             "epoch": int(epoch),
-            "model_state_dict": {k: cpu(v) for k, v in model.state_dict().items()},
-            "optimizer_state_dict": {
-                "state": {i: {k: cpu(v) for k, v in s.items()} for i, s in opt["state"].items()},
-                "param_groups": opt["param_groups"],
-            },
+            "model_state_dict": {k: cpu(v) for k, v in sd.items()},
+            "optimizer_state_dict": opt,
             "loss": float(loss),
         },
-        path,
+        path + ".tmp",
     )
+    os.replace(path + ".tmp", path)
 
 
-def load_pth(model: nn.Module, path: str) -> nn.Module:
+def load_pth(model: nn.Module, path: str, optimizer: Optional[torch.optim.Optimizer] = None):
     """Load a ``save_pth`` export (``{'model_state_dict': ...}`` or a bare
-    state_dict) into ``model``, strictly. Returns the model in eval mode."""
+    state_dict) into ``model``, strictly, and with an ``optimizer`` its
+    state too where the file has one. Returns (model in eval mode, epoch,
+    loss); a bare state_dict gives epoch 0 and loss 0."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt)
-    return load_state_dict_strict(model, sd).eval()
+    load_state_dict_strict(model, sd)
+    if optimizer is not None and ckpt.get("optimizer_state_dict"):
+        optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    return model.eval(), int(ckpt.get("epoch", 0)), float(ckpt.get("loss", 0.0))
+
+
+class CheckpointIO:
+    """Per-epoch checkpoints of a training run in ``directory``: the model
+    (weights and BatchNorm statistics), the optimizer and the epoch, one
+    ``{N}.pth`` each (named apart from the log directory's ``epoch_{N}.pth``
+    exports), the newest ``max_to_keep`` kept (None keeps all).
+    The directory is made by the first save, never by a probe."""
+
+    _NAME = re.compile(r"^(\d+)\.pth$")
+
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+
+    def epochs(self):
+        """The saved epochs, ascending."""
+        if not os.path.isdir(self.directory):
+            return []
+        found = (self._NAME.match(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def path(self, epoch: int) -> str:
+        return os.path.join(self.directory, f"{epoch}.pth")
+
+    def save(self, epoch: int, model: nn.Module, optimizer: torch.optim.Optimizer, loss: float = 0.0) -> None:
+        os.makedirs(self.directory, exist_ok=True)
+        save_pth(self.path(epoch), model, optimizer, epoch, loss)
+        if self.max_to_keep:
+            for old in self.epochs()[: -self.max_to_keep]:
+                os.remove(self.path(old))
+
+    def restore(self, model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None) -> Optional[int]:
+        """Load the latest epoch into ``model`` (and ``optimizer``); returns
+        the epoch, or None when there is none."""
+        epochs = self.epochs()
+        if not epochs:
+            return None
+        load_pth(model, self.path(epochs[-1]), optimizer)
+        return epochs[-1]
+
+
+def restore_or_die(path: str, model: nn.Module, optimizer: Optional[torch.optim.Optimizer] = None
+                   ) -> Tuple[int, str]:
+    """Restore ``model`` (and ``optimizer``) from ``path``: a ``.pth`` file, a
+    ``ckpt/`` directory of :class:`CheckpointIO`, or the training log
+    directory holding one. Returns (epoch, the path read). Exits when
+    nothing restores: a mistyped path must never go on with random weights."""
+    if os.path.isfile(path):
+        if not path.endswith(".pth"):
+            raise SystemExit(f"--resume {path}: is a file but not a .pth checkpoint")
+        _, epoch, _ = load_pth(model, path, optimizer)
+        return epoch, path
+    for d in (path, os.path.join(path, "ckpt")):
+        epoch = CheckpointIO(d).restore(model, optimizer)
+        if epoch is not None:
+            return epoch, CheckpointIO(d).path(epoch)
+    raise SystemExit(
+        f"--resume {path}: no checkpoint found (pass a .pth file, the ckpt/ "
+        "directory of the port's training CLI, or the log directory holding it; "
+        "the port does not read the JAX package's orbax checkpoints: export a "
+        ".pth with its --save_pth 1)"
+    )

@@ -25,6 +25,9 @@ import numpy as np
 class Config:
     """Detection configuration (numeric defaults of the reference Config)."""
 
+    # dataset split the data tools label their output with
+    split: str = "train"
+
     voxel_size: Tuple[float, float, float] = (0.25, 0.25, 0.4)
     area_extents: Tuple[Tuple[float, float], ...] = ((-32.0, 32.0), (-32.0, 32.0), (-3.0, 2.0))
 
@@ -96,6 +99,11 @@ class Config:
         return self.grid_size
 
     @property
+    def map_dims(self) -> Tuple[int, int]:
+        """(H, W) of the BEV map."""
+        return self.grid_size[:2]
+
+    @property
     def num_anchors(self) -> int:
         return len(self.anchor_sizes)
 
@@ -112,6 +120,26 @@ class Config:
         ys = y_lo + (np.arange(gy, dtype=np.float32) + 0.5) * vy
         cx, cy = np.meshgrid(xs, ys, indexing="ij")
         return np.stack([cx, cy], axis=-1)
+
+
+# Footprints of the synthetic data's vehicle classes, class id (1-based) ->
+# ((w_lo, w_hi), (l_lo, l_hi)) in metres: car (the binary task's only class),
+# truck/bus, motorcycle. Disjoint enough that per-class AP is learnable from
+# the geometry alone; 3-4-class data (``num_classes`` 3 or 4) draws from them.
+VEHICLE_CLASS_SIZES: Tuple[Tuple[Tuple[float, float], Tuple[float, float]], ...] = (
+    ((1.7, 2.1), (3.6, 4.8)),
+    ((2.2, 2.6), (6.0, 9.0)),
+    ((0.7, 0.9), (1.8, 2.4)),
+)
+
+
+def default_fusion_layer(grid: int) -> int:
+    """The default ``--layer`` for a ``grid``: the reference's layer 3 while
+    the fusion map stays at least 16x16, else the deepest layer that keeps
+    it there (floor 16x16). Layer 3 of a 64-grid fuses 8x8 maps of 2 m a
+    cell, too coarse for the warp to carry a 4.5 m vehicle; the JAX package
+    measured layer-3 DiscoNet below the lowerbound there."""
+    return max(0, min(3, int(math.log2(max(16, grid))) - 4))
 
 
 def tiny_config(grid: int = 64, **overrides) -> Config:

@@ -1,1 +1,2 @@
-"""Host-side data preparation of the port: training targets."""
+"""Host-side data of the port: the on-disk schema, synthetic scenes, the
+detection dataset and batching, and training targets."""

@@ -11,9 +11,9 @@ Rule (as the JAX package's ``data/targets.py``):
   ``encode_boxes(gt, anchor)``; the rest are background.
 
 Only (anchor, gt) pairs whose circumscribed circles meet are evaluated: the
-IoU of the others is exactly 0. The IoU is the JAX package's host version
-(candidate-point polygon in float64), copied here so that the positive sets
-agree exactly.
+IoU of the others is exactly 0. The IoU is the host version
+(``ops.rotated_iou.rotated_iou_pairs_np``, a copy of the JAX package's), so
+that the positive sets agree exactly.
 """
 
 from __future__ import annotations
@@ -25,73 +25,7 @@ import numpy as np
 
 from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.ops.boxes import encode_boxes, make_anchors
-
-_EPS = 1e-8
-
-
-def _corners_np(boxes: np.ndarray) -> np.ndarray:
-    """(..., 5) boxes -> (..., 4, 2) corners, counter-clockwise, float64."""
-    cx, cy, w, l, th = (boxes[..., i] for i in range(5))
-    dx = np.stack([w / 2, -w / 2, -w / 2, w / 2], axis=-1)
-    dy = np.stack([l / 2, l / 2, -l / 2, -l / 2], axis=-1)
-    c, s = np.cos(th)[..., None], np.sin(th)[..., None]
-    return np.stack([cx[..., None] + c * dx - s * dy, cy[..., None] + s * dx + c * dy], axis=-1)
-
-
-def _intersection_area_np(ca: np.ndarray, cb: np.ndarray) -> np.ndarray:
-    """Intersection area of paired convex quads (..., 4, 2): the polygon of
-    edge crossings and corners inside the other quad, sorted by angle."""
-
-    def force_ccw(c):
-        x, y = c[..., 0], c[..., 1]
-        signed = np.sum(x * np.roll(y, -1, axis=-1) - y * np.roll(x, -1, axis=-1), axis=-1)
-        return np.where(signed[..., None, None] >= 0, c, c[..., ::-1, :])
-
-    ca, cb = force_ccw(ca), force_ccw(cb)
-    p = ca[..., :, None, :]
-    r = (np.roll(ca, -1, axis=-2) - ca)[..., :, None, :]
-    q = cb[..., None, :, :]
-    s = (np.roll(cb, -1, axis=-2) - cb)[..., None, :, :]
-    rxs = r[..., 0] * s[..., 1] - r[..., 1] * s[..., 0]
-    qmp = q - p
-    t_num = qmp[..., 0] * s[..., 1] - qmp[..., 1] * s[..., 0]
-    u_num = qmp[..., 0] * r[..., 1] - qmp[..., 1] * r[..., 0]
-    denom = np.where(np.abs(rxs) < _EPS, 1.0, rxs)
-    t, u = t_num / denom, u_num / denom
-    crossing = (np.abs(rxs) >= _EPS) & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1)
-    cross_pts = p + t[..., None] * r  # (..., 4, 4, 2)
-
-    def inside(points, corners):  # within a scale-aware tolerance of every edge
-        e1 = corners
-        d = np.roll(corners, -1, axis=-2) - e1
-        v = points[..., :, None, :] - e1[..., None, :, :]
-        cross = d[..., None, :, 0] * v[..., 1] - d[..., None, :, 1] * v[..., 0]
-        elen = np.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2)[..., None, :]
-        return np.all(cross >= -1e-4 * (elen + _EPS), axis=-1)
-
-    batch = ca.shape[:-2]
-    pts = np.concatenate([cross_pts.reshape(batch + (16, 2)), ca, cb], axis=-2)
-    valid = np.concatenate([crossing.reshape(batch + (16,)), inside(ca, cb), inside(cb, ca)], axis=-1)
-    n_valid = valid.sum(axis=-1)
-    centroid = np.where(valid[..., None], pts, 0.0).sum(axis=-2) / np.maximum(n_valid, 1)[..., None]
-    ang = np.arctan2(pts[..., 1] - centroid[..., None, 1], pts[..., 0] - centroid[..., None, 0])
-    order = np.argsort(np.where(valid, ang, np.inf), axis=-1)
-    pts = np.take_along_axis(pts, order[..., None], axis=-2)
-    valid = np.take_along_axis(valid, order, axis=-1)
-    closed = np.where(valid[..., None], pts, pts[..., :1, :])
-    nxt = np.roll(closed, -1, axis=-2)
-    area = 0.5 * np.abs(np.sum(closed[..., 0] * nxt[..., 1] - closed[..., 1] * nxt[..., 0], axis=-1))
-    return np.where(n_valid >= 3, area, 0.0)
-
-
-def rotated_iou_pairs_np(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
-    """Rotated IoU of paired boxes (P, 5) x (P, 5) -> (P,), float64."""
-    boxes_a = np.asarray(boxes_a, np.float64).reshape(-1, 5)
-    boxes_b = np.asarray(boxes_b, np.float64).reshape(-1, 5)
-    inter = _intersection_area_np(_corners_np(boxes_a), _corners_np(boxes_b))
-    union = boxes_a[:, 2] * boxes_a[:, 3] + boxes_b[:, 2] * boxes_b[:, 3] - inter
-    return np.where(union > _EPS, inter / union, 0.0)
-
+from disconet_tpu_torch.ops.rotated_iou import rotated_iou_pairs_np
 
 def assign_targets(
     gt_boxes: np.ndarray,

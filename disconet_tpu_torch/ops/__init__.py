@@ -1,1 +1,1 @@
-"""Box codec, voxelizer, rotated IoU, NMS and pose warp of the port."""
+"""Box codec, voxelizer, rotated IoU, NMS, late fusion and pose warp of the port."""

@@ -65,6 +65,16 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx, cy, w, l, theta], dim=-1)
 
 
+def box_corners_np(boxes: np.ndarray) -> np.ndarray:
+    """Boxes (..., 5) -> corners (..., 4, 2), counter-clockwise, float64 on
+    the host."""
+    cx, cy, w, l, th = (np.asarray(boxes, np.float64)[..., i] for i in range(5))
+    dx = np.stack([w / 2, -w / 2, -w / 2, w / 2], axis=-1)
+    dy = np.stack([l / 2, l / 2, -l / 2, -l / 2], axis=-1)
+    c, s = np.cos(th)[..., None], np.sin(th)[..., None]
+    return np.stack([cx[..., None] + c * dx - s * dy, cy[..., None] + s * dx + c * dy], axis=-1)
+
+
 def box_corners(boxes: torch.Tensor) -> torch.Tensor:
     """Boxes (..., 5) -> corners (..., 4, 2), counter-clockwise."""
     cx, cy, w, l, th = boxes.unbind(-1)

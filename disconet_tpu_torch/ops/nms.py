@@ -165,3 +165,44 @@ def rotated_nms_decode(
     top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
     keep = _suppress(top_boxes, top_scores, iou_threshold, iou)
     return top_boxes, top_scores, keep
+
+
+def multiclass_nms_decode(
+    deltas: torch.Tensor,
+    cls_logits: torch.Tensor,
+    anchors: torch.Tensor,
+    iou_threshold: float,
+    score_threshold: float = 0.0,
+    top_k: int = 256,
+    iou: IouFn = rotated_iou_matrix,
+):
+    """Per-class rotated NMS over encoded predictions, batched over frames:
+    the reference's ``predict_all`` runs NMS independently per class.
+
+    Args:
+        deltas: (F, H, W, A, code) class-agnostic box deltas.
+        cls_logits: (F, H, W, A, C) raw class logits, class 0 background.
+        anchors, iou_threshold, score_threshold, top_k, iou: as
+            :func:`rotated_nms_decode`.
+
+    Each foreground class c selects, decodes and suppresses on its own
+    softmax probability, so boxes of different classes never suppress each
+    other; every class runs :func:`rotated_nms_decode` over all frames.
+
+    Returns:
+        boxes (F, (C-1)*top_k, 5), scores, keep and labels (int32 class ids
+        1..C-1), class-major within a frame.
+    """
+    Fr, H, W, A, code = deltas.shape
+    C = cls_logits.shape[-1]
+    probs = torch.softmax(cls_logits.float(), dim=-1)
+    packed = deltas.float().reshape(Fr, H, W, A * code)
+    per_class = [
+        rotated_nms_decode(packed, probs[..., c], anchors, iou_threshold, score_threshold, top_k, iou)
+        for c in range(1, C)
+    ]
+    boxes, scores, keep = (torch.stack(t, dim=1).reshape((Fr, (C - 1) * top_k) + t[0].shape[2:])
+                           for t in zip(*per_class))
+    labels = torch.arange(1, C, dtype=torch.int32, device=deltas.device)
+    labels = labels[None, :, None].expand(Fr, C - 1, top_k).reshape(Fr, (C - 1) * top_k)
+    return boxes, scores, keep, labels

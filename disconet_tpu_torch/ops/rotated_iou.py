@@ -10,6 +10,10 @@
 * :func:`rotated_iou_matrix` — the wrapper: CUDA tensors go to the
   hand-written kernel (``csrc/rotated_iou.cu``), CPU tensors to the plain
   version.
+* :func:`rotated_iou_pairs_np` and :func:`rotated_iou_matrix_np` — host numpy
+  in float64, the JAX package's copies for target assignment, the mAP and
+  late fusion: the polygon of edge crossings and corners inside the other
+  box, sorted by angle. Not the kernel's arithmetic.
 
 One deliberate difference from the Pallas kernel: a box of zero area (the
 NMS's padding rows, w = l = 0) gives IoU 0 against every box. The Pallas
@@ -22,7 +26,10 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
+
+from disconet_tpu_torch.ops.boxes import box_corners_np
 
 _TOL = 1e-4
 _EPS = 1e-9
@@ -139,3 +146,74 @@ def rotated_iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Te
 
 
 rotated_iou_matrix.launches = 0
+
+
+_EPS_NP = 1e-8
+
+
+def _intersection_area_np(ca: np.ndarray, cb: np.ndarray) -> np.ndarray:
+    """Intersection area of paired convex quads (..., 4, 2): the polygon of
+    edge crossings and corners inside the other quad, sorted by angle."""
+
+    def force_ccw(c):
+        x, y = c[..., 0], c[..., 1]
+        signed = np.sum(x * np.roll(y, -1, axis=-1) - y * np.roll(x, -1, axis=-1), axis=-1)
+        return np.where(signed[..., None, None] >= 0, c, c[..., ::-1, :])
+
+    ca = force_ccw(np.asarray(ca, np.float64))
+    cb = force_ccw(np.asarray(cb, np.float64))
+    p = ca[..., :, None, :]
+    r = (np.roll(ca, -1, axis=-2) - ca)[..., :, None, :]
+    q = cb[..., None, :, :]
+    s = (np.roll(cb, -1, axis=-2) - cb)[..., None, :, :]
+    rxs = r[..., 0] * s[..., 1] - r[..., 1] * s[..., 0]
+    qmp = q - p
+    t_num = qmp[..., 0] * s[..., 1] - qmp[..., 1] * s[..., 0]
+    u_num = qmp[..., 0] * r[..., 1] - qmp[..., 1] * r[..., 0]
+    denom = np.where(np.abs(rxs) < _EPS_NP, 1.0, rxs)
+    t, u = t_num / denom, u_num / denom
+    crossing = (np.abs(rxs) >= _EPS_NP) & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1)
+    cross_pts = p + t[..., None] * r  # (..., 4, 4, 2)
+
+    def inside(points, corners):  # within a scale-aware tolerance of every edge
+        e1 = corners
+        d = np.roll(corners, -1, axis=-2) - e1
+        v = points[..., :, None, :] - e1[..., None, :, :]
+        cross = d[..., None, :, 0] * v[..., 1] - d[..., None, :, 1] * v[..., 0]
+        elen = np.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2)[..., None, :]
+        return np.all(cross >= -1e-4 * (elen + _EPS_NP), axis=-1)
+
+    batch = ca.shape[:-2]
+    pts = np.concatenate([cross_pts.reshape(batch + (16, 2)), ca, cb], axis=-2)
+    valid = np.concatenate([crossing.reshape(batch + (16,)), inside(ca, cb), inside(cb, ca)], axis=-1)
+    n_valid = valid.sum(axis=-1)
+    centroid = np.where(valid[..., None], pts, 0.0).sum(axis=-2) / np.maximum(n_valid, 1)[..., None]
+    ang = np.arctan2(pts[..., 1] - centroid[..., None, 1], pts[..., 0] - centroid[..., None, 0])
+    order = np.argsort(np.where(valid, ang, np.inf), axis=-1)
+    pts = np.take_along_axis(pts, order[..., None], axis=-2)
+    valid = np.take_along_axis(valid, order, axis=-1)
+    closed = np.where(valid[..., None], pts, pts[..., :1, :])
+    nxt = np.roll(closed, -1, axis=-2)
+    area = 0.5 * np.abs(np.sum(closed[..., 0] * nxt[..., 1] - closed[..., 1] * nxt[..., 0], axis=-1))
+    return np.where(n_valid >= 3, area, 0.0)
+
+
+def rotated_iou_pairs_np(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """Rotated IoU of paired boxes (P, 5) x (P, 5) -> (P,), float64."""
+    boxes_a = np.asarray(boxes_a, np.float64).reshape(-1, 5)
+    boxes_b = np.asarray(boxes_b, np.float64).reshape(-1, 5)
+    inter = _intersection_area_np(box_corners_np(boxes_a), box_corners_np(boxes_b))
+    union = boxes_a[:, 2] * boxes_a[:, 3] + boxes_b[:, 2] * boxes_b[:, 3] - inter
+    return np.where(union > _EPS_NP, inter / union, 0.0)
+
+
+def rotated_iou_matrix_np(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """(N, 5) x (M, 5) -> (N, M) rotated IoU, float64."""
+    boxes_a = np.atleast_2d(np.asarray(boxes_a, np.float64))
+    boxes_b = np.atleast_2d(np.asarray(boxes_b, np.float64))
+    N, M = len(boxes_a), len(boxes_b)
+    ca = np.broadcast_to(box_corners_np(boxes_a)[:, None], (N, M, 4, 2))
+    cb = np.broadcast_to(box_corners_np(boxes_b)[None, :], (N, M, 4, 2))
+    inter = _intersection_area_np(ca, cb)
+    union = (boxes_a[:, 2] * boxes_a[:, 3])[:, None] + (boxes_b[:, 2] * boxes_b[:, 3])[None] - inter
+    return np.where(union > _EPS_NP, inter / union, 0.0)

@@ -1,0 +1,306 @@
+"""Train collaborative detection (the reference's ``tools/det/train_codet.py``).
+
+    python -m disconet_tpu_torch.tools.det.train_codet --data <root> --com disco \
+        --kd_flag 1 --resume_teacher logs/upperbound/epoch_100.pth --rsu 1 \
+        --batch 4 --nepoch 100 --logpath logs --auto_resume_path logs
+
+The flags, defaults, log layout (``{logpath}/{mode}[_kd]/``) and printed
+lines are the JAX package's CLI's. Runs on the card unless ``--device cpu``.
+Each epoch saves ``{logdir}/ckpt/{N}.pth`` (model, BatchNorm statistics,
+Adam; the newest ``--ckpt_keep`` kept) and, with ``--save_pth 1``, an
+``{logdir}/epoch_{N}.pth`` export that is never pruned. ``--resume`` and
+``--resume_teacher`` take a ``.pth`` file, a ``ckpt/`` directory or the log
+directory holding one; the JAX package's orbax directories are not read.
+
+Not ported; each exits naming its ROADMAP item: ``--remat 1``,
+``--steps_per_dispatch`` > 1, ``--mesh_agent``/``--mesh_spatial`` > 1,
+``--visualization 1``, ``--debug_nans 1`` and the fusion models other than
+``disco``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from disconet_tpu_torch.checkpoint import CheckpointIO, restore_or_die, save_pth
+from disconet_tpu_torch.config import Config, default_fusion_layer, tiny_config
+from disconet_tpu_torch.data.dataset import BatchIterator, V2XSimDet
+from disconet_tpu_torch.device import resolve_device
+from disconet_tpu_torch.models.build import build_model
+from disconet_tpu_torch.training import (
+    MetricLogger,
+    create_train_state,
+    make_train_step,
+    precompute_teacher_feats,
+    prefetch_to_device,
+    teacher_feat_bytes,
+)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train collaborative detection (PyTorch port)")
+    # --- reference flags ---
+    p.add_argument("--data", type=str, required=True, help="dataset root (agent{i}/ dirs)")
+    p.add_argument("--com", type=str, default="", help="''|when2com|who2com|v2v|disco|sum|mean|max|cat|agent")
+    p.add_argument("--bound", type=str, default="", help="lowerbound|upperbound (with --com '')")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--nepoch", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--kd_flag", type=int, default=0)
+    p.add_argument("--kd_weight", type=float, default=100000.0)
+    p.add_argument("--layer", type=int, default=None,
+                   help="fusion layer index (default: the reference's 3 at --grid >= 128; "
+                        "smaller grids drop it to keep the fusion map >= 16x16)")
+    p.add_argument("--rsu", type=int, default=1)
+    p.add_argument("--resume", type=str, default="", help=".pth or ckpt dir to resume the student")
+    p.add_argument("--resume_teacher", type=str, default="", help="teacher checkpoint (--kd_flag 1)")
+    p.add_argument("--auto_resume_path", type=str, default="", help="scan for the latest epoch checkpoint")
+    p.add_argument("--logpath", type=str, default="logs")
+    p.add_argument("--log", action="store_true", help="write {logdir}/log.txt (and TensorBoard where installed)")
+    p.add_argument("--nworker", type=int, default=2, help="loader threads")
+    p.add_argument("--visualization", type=int, default=0)
+    p.add_argument("--warp_flag", type=int, default=1, help="when2com: warp values")
+    p.add_argument("--warp_dtype", type=str, default=None, choices=["bfloat16", "float32"],
+                   help="inference warp dtype; training warps are always float32")
+    p.add_argument("--gru_rounds", type=int, default=0, help="--com v2v only: ConvGRU rounds")
+    # --- additions of the JAX package ---
+    p.add_argument("--grid", type=int, default=256, help="BEV grid cells (256 = reference)")
+    p.add_argument("--num_classes", type=int, default=2,
+                   help="detection classes incl. background (2 = the binary vehicle task)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save_pth", type=int, default=1, help="also export {logdir}/epoch_N.pth")
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--remat", type=int, default=0, help="rematerialize activations in the backward")
+    p.add_argument("--steps_per_dispatch", type=int, default=1, help="optimizer steps per device call")
+    p.add_argument("--profile", type=int, default=0,
+                   help="trace N steady-state steps with torch.profiler to {logdir}/profile/trace.json")
+    p.add_argument("--debug_nans", type=int, default=0, help="stop at the first NaN")
+    p.add_argument("--save_best", type=int, default=0,
+                   help="track the min end-of-epoch train loss and export {logdir}/best.pth "
+                        "with that epoch's weights (written at --ckpt_every boundaries)")
+    p.add_argument("--ckpt_every", type=int, default=1, help="save checkpoints every N epochs")
+    p.add_argument("--ckpt_keep", type=int, default=5,
+                   help="ckpt/ checkpoints retained (0 = keep all; epoch_N.pth exports are never pruned)")
+    p.add_argument("--cache_items", type=int, default=256, help="in-memory dataset item cache")
+    p.add_argument("--max_pos", type=int, default=0,
+                   help="override config.max_pos_anchors (0 = config default 2048)")
+    p.add_argument("--kd_cache", type=int, default=1,
+                   help="precompute the frozen teacher's KD features once on the device and "
+                        "gather them per step (1) or re-forward the teacher every step (0); "
+                        "off when the tables exceed --kd_cache_gb")
+    p.add_argument("--kd_cache_gb", type=float, default=4.0, help="device memory budget of the KD cache (bf16)")
+    p.add_argument("--mesh_agent", type=int, default=1, help="mesh axis size sharding the agent dim")
+    p.add_argument("--mesh_spatial", type=int, default=1, help="mesh axis size sharding the BEV H dim")
+    # --- the port's ---
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    if args.layer is None:
+        args.layer = default_fusion_layer(args.grid)
+        if args.layer != 3:
+            print(f"--layer auto: {args.layer} (fusion map >=16x16 at "
+                  f"--grid {args.grid}; pass --layer 3 for the reference index)")
+    return args
+
+
+def refuse_unported(checks) -> None:
+    """Exit on the first set flag the port does not have: ``checks`` are
+    (is set, flag, ROADMAP item) triples."""
+    for on, flag, item in checks:
+        if on:
+            raise SystemExit(f"{flag} is not ported to the PyTorch port yet (ROADMAP.md Queue 1, {item})")
+
+
+def make_config(args) -> Config:
+    over = dict(kd_weight=args.kd_weight, fusion_layer=args.layer)
+    if args.num_classes != 2:
+        over["num_classes"] = args.num_classes
+    if args.max_pos:
+        over["max_pos_anchors"] = args.max_pos
+    return Config(**over) if args.grid == 256 else tiny_config(args.grid, **over)
+
+
+def mode_name(args) -> str:
+    return (args.com or args.bound or "lowerbound") + ("_kd" if args.kd_flag else "")
+
+
+def build(args, cfg, device, kd_flag=False):
+    """``build_model`` for ``--com``/``--bound``; a fusion model the port does
+    not have exits."""
+    try:
+        return build_model(args.com or args.bound, cfg, layer=args.layer, device=device,
+                           seed=args.seed, kd_flag=kd_flag)
+    except ValueError as e:
+        raise SystemExit(f"{e} (ROADMAP.md Queue 1, item 13)") from None
+
+
+def load_student_ckpt(args, model, optimizer) -> int:
+    """Resume priority: --resume (.pth or ckpt dir) > --auto_resume_path >
+    fresh. Returns the epoch the run continues after."""
+    if args.resume:
+        if args.resume.endswith(".pth"):
+            epoch, _ = restore_or_die(args.resume, model)
+            print("NOTE: .pth resume restores params/batch_stats only — Adam "
+                  "moments restart from zero (use the ckpt dir to resume them)")
+            return epoch
+        return restore_or_die(args.resume, model, optimizer)[0]
+    if args.auto_resume_path:
+        auto_dir = os.path.join(args.auto_resume_path, mode_name(args), "ckpt")
+        epoch = CheckpointIO(auto_dir).restore(model, optimizer)
+        if epoch is not None:
+            print(f"auto-resumed from epoch {epoch} at {auto_dir}")
+            return epoch
+    return 0
+
+
+def _floats(metrics):
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unported([
+        (args.remat, "--remat 1", "item 10 (train_remat)"),
+        (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1", "item 10 (make_train_step_multi)"),
+        (args.mesh_agent > 1 or args.mesh_spatial > 1, "--mesh_agent/--mesh_spatial > 1", "item 16"),
+        (args.visualization, "--visualization 1", "item 12 (needs matplotlib)"),
+        (args.debug_nans, "--debug_nans 1", "item 12"),
+    ])
+    dev = resolve_device(args.device)
+    cfg = make_config(args)
+
+    dataset = V2XSimDet(args.data, cfg, rsu=bool(args.rsu), bound=args.bound,
+                        dense_targets=False, cache_items=args.cache_items)
+    if len(dataset) == 0:
+        raise SystemExit(f"no frames found under {args.data}")
+    loader = BatchIterator(dataset, args.batch, shuffle=True, seed=args.seed, num_workers=args.nworker)
+    if len(loader) == 0:  # drop_last: fewer frames than --batch -> no batches
+        raise SystemExit(f"dataset has {len(dataset)} scene-frames, fewer than --batch {args.batch}")
+    print(f"dataset: {len(dataset)} scene-frames, {len(loader)} batches/epoch")
+
+    model = build(args, cfg, dev, kd_flag=bool(args.kd_flag))
+    optimizer = create_train_state(model, lr=args.lr)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model '{mode_name(args)}': {n_params / 1e6:.2f}M params on {dev}")
+
+    teacher = None
+    if args.kd_flag:
+        teacher = build_model("teacher", cfg, device=dev, seed=args.seed + 1)
+        if args.resume_teacher:
+            # restore_or_die: a mistyped path must fail, not distil from a
+            # random teacher at kd_weight 1e5
+            restore_or_die(args.resume_teacher, teacher)
+            print(f"loaded frozen teacher from {args.resume_teacher}")
+        else:
+            print("WARNING: --kd_flag 1 without --resume_teacher: distilling against a random teacher")
+
+    logdir = os.path.join(args.logpath, mode_name(args))
+    os.makedirs(logdir, exist_ok=True)
+    ckpt_io = CheckpointIO(os.path.join(logdir, "ckpt"), max_to_keep=args.ckpt_keep or None)
+    start_epoch = load_student_ckpt(args, model, optimizer)
+    logger = MetricLogger(logdir, log=args.log)
+
+    kd_cache = None
+    if args.kd_flag and args.kd_cache:
+        nbytes = teacher_feat_bytes(cfg, len(dataset), batch_size=args.batch)
+        if nbytes <= args.kd_cache_gb * 2**30:
+            t0 = time.perf_counter()
+            kd_cache = precompute_teacher_feats(teacher, dataset, cfg, batch_size=args.batch,
+                                                num_workers=args.nworker)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            print(f"KD cache: {nbytes / 2**20:.0f} MiB of teacher features "
+                  f"precomputed in {time.perf_counter() - t0:.1f}s — the per-step "
+                  f"teacher forward and bev_teacher transfer are gone")
+        else:
+            print(f"KD cache disabled: table would be {nbytes / 2**30:.2f} GiB "
+                  f"> --kd_cache_gb {args.kd_cache_gb}; re-forwarding per step")
+    train_step = make_train_step(model, cfg, optimizer, teacher=teacher, kd_flag=bool(args.kd_flag),
+                                 kd_from_cache=kd_cache)
+
+    def host_batches():
+        for batch in loader:
+            if not args.kd_flag or kd_cache is not None:  # skip the dead copy
+                batch.pop("bev_teacher", None)
+                batch.pop("bev_teacher_packed", None)
+            yield batch
+
+    step = 0
+    prof = None
+    profile_done = False
+    # --save_best: the min end-of-epoch loss's weights, held on the host and
+    # written at checkpoint boundaries
+    best = {"loss": float("inf"), "epoch": None, "snap": None, "written": None} if args.save_best else None
+    for epoch in range(start_epoch + 1, args.nepoch + 1):
+        t_ep = time.perf_counter()
+        waited = 0.0  # seconds the loop waited for its next device batch
+        last, metrics = {}, None
+        batches = prefetch_to_device(host_batches(), dev)
+        while True:
+            t0 = time.perf_counter()
+            dev_batch = next(batches, None)
+            waited += time.perf_counter() - t0
+            if dev_batch is None:
+                break
+            if args.profile and not profile_done and prof is None and step >= 2:
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+                prof = profile(activities=activities)
+                prof.__enter__()
+            metrics = train_step(dev_batch)
+            step += 1
+            if prof is not None and step >= 2 + args.profile:
+                _end_profile(prof, dev, logdir)
+                prof, profile_done = None, True
+            if step % args.log_every == 0:
+                last = _floats(metrics)
+                logger.write(step, last, prefix=f"epoch {epoch}")
+        final = _floats(metrics)  # waits for the epoch's device work
+        last = last or final
+        dt = time.perf_counter() - t_ep
+        logger.write(step, {**last, "scenes_per_sec": len(loader) * args.batch / dt,
+                            "loader_wait_share": waited / dt}, prefix=f"epoch {epoch} done")
+        if best is not None:
+            ep_loss = last.get("loss")
+            if ep_loss is not None and np.isfinite(ep_loss) and ep_loss < best["loss"]:
+                best.update(loss=float(ep_loss), epoch=epoch,
+                            snap={k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        if epoch % args.ckpt_every == 0 or epoch == args.nepoch:
+            if best is not None and best["snap"] is not None and best["epoch"] != best["written"]:
+                _write_best(logdir, best)
+            ckpt_io.save(epoch, model, optimizer, loss=last.get("loss", 0.0))
+            if args.save_pth:
+                save_pth(os.path.join(logdir, f"epoch_{epoch}.pth"), model, optimizer, epoch,
+                         loss=last.get("loss", 0.0))
+    if prof is not None:  # the run ended before 2 + --profile steps
+        _end_profile(prof, dev, logdir)
+    logger.close()
+    print(f"training complete: {args.nepoch} epochs, checkpoints in {logdir}")
+
+
+def _end_profile(prof, dev, logdir: str) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof.__exit__(None, None, None)
+    out = os.path.join(logdir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    print(f"profiler trace written to {out}")
+
+
+def _write_best(logdir: str, best: dict) -> None:
+    """(Re)write {logdir}/best.pth from the best epoch's snapshot. The printed
+    line is the record a harness parses for the checkpoint of a run."""
+    path = os.path.join(logdir, "best.pth")
+    save_pth(path, best["snap"], None, best["epoch"], loss=best["loss"])
+    best["written"] = best["epoch"]
+    print(f"best checkpoint: epoch {best['epoch']} loss={best['loss']:.5f} -> {path}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

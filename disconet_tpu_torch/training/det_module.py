@@ -6,22 +6,30 @@ model holds its parameters and BatchNorm running statistics, a
 function over a device batch:
 
 * ``train_step(batch)``: with KD, the frozen teacher's forward (eval mode,
-  no graph) on ``bev_teacher``; the student's training forward, which
+  no graph) on ``bev_teacher``, or the batch's rows of the teacher's
+  precomputed taps (:func:`precompute_teacher_feats`, gathered by
+  ``frame_idx``); the student's training forward, which
   updates its BatchNorm running statistics; focal + smooth-L1 (+ kd_weight x
   the KD feature MSE); backward; one Adam step. Returns the metrics
   ``loss``, ``cls_loss``, ``reg_loss``, (``kd_loss``) and ``grad_norm`` as
   0-dim device tensors, so a step does not wait for the device.
 * ``eval_step(batch)``: the eval-mode forward and the losses.
-* ``predict_step(batch)``: the eval-mode forward, the packed scores and the
-  rotated NMS (binary classes), keep masked by ``agent_mask``.
+* ``predict_step(batch)``: the eval-mode forward, the scores and the rotated
+  NMS (per class when ``num_classes`` > 2), keep masked by ``agent_mask``.
 
 Absent agents are out of the classification loss, the regression mask and the
 KD loss; the fusion's sender softmax masks them separately.
+
+:func:`prefetch_to_device` copies host batches to the card ahead of the
+steps, and :func:`pipeline_one_deep` dispatches batch n+1 before batch n's
+outputs are fetched, for the evaluation loop.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.ops.bitpack import pack_bev_np, unpack_bev
+from disconet_tpu_torch.models.faf_net import TeacherNet
 from disconet_tpu_torch.ops.boxes import make_anchors
 from disconet_tpu_torch.ops.losses import (
     kd_feature_loss,
@@ -38,6 +47,7 @@ from disconet_tpu_torch.ops.losses import (
     softmax_focal_loss,
     weighted_smooth_l1,
 )
+from disconet_tpu_torch.ops.nms import multiclass_nms_decode
 from disconet_tpu_torch.pipeline import detect
 
 Batch = Dict[str, torch.Tensor]
@@ -55,6 +65,7 @@ _DEVICE_KEYS = (
     "reg_pos_cls",
     "trans",
     "agent_mask",
+    "frame_idx",
 )
 # the dense targets are redundant when the sparse encoding is present
 _DENSE_TARGET_KEYS = ("label_one_hot", "reg_target", "reg_mask")
@@ -75,7 +86,11 @@ def batch_to_device(
 ) -> Batch:
     """Host batch of numpy arrays -> tensors on ``device`` (CUDA unless the
     caller names another). uint8/bool BEV grids ship bit-packed; the dense
-    targets are left out when the sparse ones are there."""
+    targets are left out when the sparse ones are there.
+
+    To the card each array goes through pinned memory as an asynchronous
+    copy on the current stream: the host returns before the bytes land, and
+    work queued after it on that stream sees them."""
     dev = resolve_device(device)
     sparse = "reg_pos_idx" in batch
     out = {}
@@ -85,7 +100,8 @@ def batch_to_device(
         arr, key = np.asarray(batch[k]), k
         if k in _PACK_KEYS and arr.dtype in (np.uint8, np.bool_):
             arr, key = pack_bev_np(arr), k + "_packed"
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        out[key] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
     return out
 
 
@@ -185,13 +201,23 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     teacher: Optional[nn.Module] = None,
     kd_flag: bool = False,
+    kd_from_cache: Optional[Sequence[torch.Tensor]] = None,
 ) -> Callable[[Batch], Batch]:
     """The training step of ``model`` with ``optimizer`` (see
     :func:`create_train_state`). With ``kd_flag`` and a ``teacher`` (a
-    TeacherNet, never given to the optimizer) the loss adds the KD term."""
+    TeacherNet, never given to the optimizer) the loss adds the KD term.
+
+    ``kd_from_cache``: the teacher's taps of every frame, the tables of
+    :func:`precompute_teacher_feats`. Given with ``kd_flag``, the step reads
+    the batch's rows by ``frame_idx`` instead of running the teacher: the
+    frozen teacher's taps are the same every epoch."""
 
     def train_step(batch: Batch) -> Batch:
-        teacher_out = _teacher_out(teacher, kd_flag, batch, config)
+        if kd_flag and kd_from_cache is not None:
+            idx = batch["frame_idx"].long()
+            teacher_out = {"kd_feats": [t.index_select(0, idx) for t in kd_from_cache]}
+        else:
+            teacher_out = _teacher_out(teacher, kd_flag, batch, config)
         model.train()
         out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
         loss, metrics = _losses(out, batch, config, teacher_out)
@@ -203,6 +229,67 @@ def make_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def teacher_feat_bytes(config: Config, n_frames: int, dtype: torch.dtype = torch.bfloat16,
+                       batch_size: int = 1) -> int:
+    """Bytes of the KD feature cache of ``n_frames`` scene-frames: TeacherNet's
+    five taps for ``config.max_agents`` agents a frame, with the tables padded
+    to whole batches of ``batch_size`` as :func:`precompute_teacher_feats`
+    allocates them. The shapes come from a forward on the meta device (no
+    memory, no arithmetic)."""
+    n_rows = -(-n_frames // batch_size) * batch_size
+    with torch.device("meta"):
+        teacher = TeacherNet(config).eval()
+        bev = torch.empty((1, config.max_agents) + tuple(config.bev_shape))
+        with torch.no_grad():
+            taps = teacher(bev, None, torch.ones((1, config.max_agents), dtype=torch.bool))["kd_feats"]
+    per_frame = sum(t[0].numel() for t in taps)
+    return per_frame * n_rows * torch.empty((), dtype=dtype).element_size()
+
+
+def precompute_teacher_feats(
+    teacher: nn.Module,
+    dataset,
+    config: Config,
+    batch_size: int = 4,
+    dtype: torch.dtype = torch.bfloat16,
+    num_workers: int = 2,
+):
+    """One eval pass of the frozen ``teacher`` over ``dataset``, in order, on
+    the teacher's device -> the KD tables: one (N_pad, A, h, w, c) tensor per
+    tap, row i the taps of ``dataset[i]`` (``frame_idx`` i), N_pad =
+    len(dataset) rounded up to whole batches (the padding rows are never
+    read). For ``make_train_step(kd_from_cache=...)``.
+
+    Each batch's rows are written into tables allocated up front: holding
+    the batches and concatenating at the end would double the peak memory
+    over the size :func:`teacher_feat_bytes` gives. ``dtype`` bfloat16 halves
+    the tables; float32 gives the re-forward's taps exactly."""
+    from disconet_tpu_torch.data.dataset import BatchIterator, pad_batch_to
+
+    dev = next(teacher.parameters()).device
+    teacher.eval()
+    n = len(dataset)
+    loader = BatchIterator(dataset, batch_size, shuffle=False, drop_last=False, num_workers=num_workers)
+    tables, order, offset = None, [], 0
+    for batch in loader:
+        order.extend(np.asarray(batch["frame_idx"]).tolist())
+        batch = pad_batch_to(batch, batch_size, config.max_agents)
+        d = batch_to_device(
+            {k: batch[k] for k in ("bev_teacher", "bev_teacher_packed", "agent_mask") if k in batch}, dev
+        )
+        with torch.no_grad():
+            rows = teacher(get_bev(d, "bev_teacher", config), None, d["agent_mask"])["kd_feats"]
+        if tables is None:
+            n_pad = -(-n // batch_size) * batch_size
+            tables = [torch.zeros((n_pad,) + tuple(r.shape[1:]), dtype=dtype, device=dev) for r in rows]
+        for t, r in zip(tables, rows):
+            t[offset : offset + batch_size].copy_(r)
+        offset += batch_size
+    if order != list(range(n)):
+        raise RuntimeError("the teacher pass did not visit the dataset in order")
+    return tuple(tables)
 
 
 def make_eval_step(
@@ -221,21 +308,140 @@ def make_eval_step(
 
 
 def make_predict_step(model: nn.Module, config: Config) -> Callable:
-    """The inference step: forward, packed scores, rotated NMS with the IoU
-    kernel on the card. Returns boxes (B, A, K, 5), scores (B, A, K) and keep
-    (B, A, K), false for absent agents; K = ``config.nms_top_k``. Binary
-    classes only (the multi-class NMS is not ported)."""
-    if config.num_classes != 2:
-        raise NotImplementedError("the multi-class predict step is not ported")
+    """The inference step: forward, scores, rotated NMS with the IoU kernel on
+    the card. Returns boxes (B, A, K, 5), scores (B, A, K) and keep (B, A, K),
+    false for absent agents; K = ``config.nms_top_k``. With ``num_classes``
+    > 2 the NMS runs per class (:func:`ops.nms.multiclass_nms_decode`) and
+    the step returns ``(boxes, scores, keep, labels)`` with K' =
+    (num_classes - 1) * K slots an agent."""
     anchors = torch.from_numpy(make_anchors(config)).to(next(model.parameters()).device)
 
     def predict_step(batch: Batch):
         model.eval()
         with torch.inference_mode():
             mask = batch["agent_mask"].bool()
-            boxes, scores, keep = detect(
-                model, get_bev(batch, "bev", config), batch["trans"], mask, anchors, config
+            bev = get_bev(batch, "bev", config)
+            if config.num_classes == 2:
+                boxes, scores, keep = detect(model, bev, batch["trans"], mask, anchors, config)
+                return boxes, scores, keep & mask[:, :, None]
+            out = model(bev, batch["trans"], mask, store_bf16=True)
+            B, A = bev.shape[:2]
+            boxes, scores, keep, labels = multiclass_nms_decode(
+                out["reg"].flatten(0, 1), out["cls"].flatten(0, 1), anchors,
+                iou_threshold=config.nms_iou_threshold, score_threshold=config.score_threshold,
+                top_k=config.nms_top_k,
             )
-            return boxes, scores, keep & mask[:, :, None]
+            KT = (config.num_classes - 1) * config.nms_top_k
+            return (boxes.reshape(B, A, KT, 5), scores.reshape(B, A, KT),
+                    keep.reshape(B, A, KT) & mask[:, :, None], labels.reshape(B, A, KT))
 
     return predict_step
+
+
+def pipeline_one_deep(batches: Iterable, dispatch: Callable) -> Iterator:
+    """One-deep prediction pipeline for the evaluation loop: dispatch batch
+    n+1's device work before fetching batch n's outputs, so the host's work
+    on batch n overlaps the device's on n+1. Yields (batch, outputs), the
+    tuple of tensors that ``dispatch(batch)`` returned as numpy arrays."""
+
+    def fetch(outs):
+        return tuple(t.cpu().numpy() for t in outs)
+
+    pending = None
+    for b in batches:
+        fut = dispatch(b)
+        if pending is not None:
+            yield pending[0], fetch(pending[1])
+        pending = (b, fut)
+    if pending is not None:
+        yield pending[0], fetch(pending[1])
+
+
+def _tensors(x) -> Iterator[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+_DONE = object()
+
+
+def prefetch_to_device(
+    batches: Iterable,
+    device: Optional[Union[str, torch.device]] = None,
+    to_device: Optional[Callable] = None,
+    depth: int = 2,
+) -> Iterator:
+    """Copy host batches to ``device`` on a worker thread, up to ``depth``
+    ahead of the consumer, in order.
+
+    ``to_device(batch)`` (default :func:`batch_to_device` to ``device``) runs
+    on the worker; whatever it returns is yielded. On the card it runs on a
+    side stream, and its copies are asynchronous from pinned memory. The
+    consumer's current stream waits on an event recorded after them, and
+    every tensor of the result is marked as used on that stream, so a step
+    never reads a batch still being copied and the allocator never hands
+    its memory to the side stream while a step may still read it. An error
+    of the worker (or of ``batches``) is raised in the consumer; leaving the
+    loop early stops and joins the worker."""
+    dev = resolve_device(device)
+    if to_device is None:
+        def to_device(b):
+            return batch_to_device(b, dev)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def work():
+        try:
+            for b in batches:
+                if stop.is_set():
+                    return
+                if side is None:
+                    item = (to_device(b), None)
+                else:
+                    with torch.cuda.stream(side):
+                        out = to_device(b)
+                        ready = torch.cuda.Event()
+                        ready.record(side)
+                    item = (out, ready)
+                if not put(item):
+                    return
+            put(_DONE)
+        except BaseException as e:  # noqa: BLE001 -- re-raised by the consumer
+            put(e)
+
+    worker = threading.Thread(target=work, daemon=True)
+    worker.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            out, ready = item
+            if ready is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(ready)
+                for t in _tensors(out):
+                    if t.device.type == "cuda":
+                        t.record_stream(stream)
+            yield out
+    finally:
+        stop.set()
+        worker.join()

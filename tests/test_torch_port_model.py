@@ -116,7 +116,8 @@ def test_save_pth_export_loads_strictly(jax_side, port_model, tmp_path):
     path = str(tmp_path / "disco.pth")
     v = jax_side.variables
     save_pth(path, types.SimpleNamespace(params=v["params"], batch_stats=v["batch_stats"]), epoch=3)
-    loaded = load_pth(build_model("disco", TCFG, device="cpu", seed=5), path)
+    loaded, epoch, _ = load_pth(build_model("disco", TCFG, device="cpu", seed=5), path)
+    assert epoch == 3
     for (k, a), (k2, b) in zip(sorted(port_model.state_dict().items()), sorted(loaded.state_dict().items())):
         assert k == k2
         if not k.endswith("num_batches_tracked"):

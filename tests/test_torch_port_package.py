@@ -22,14 +22,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _ISOLATION = r"""
 import pkgutil, sys
+ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "disconet_tpu")
 def banned():
-    return {m for m in sys.modules
-            if m in ("jax", "jaxlib", "flax", "disconet_tpu")
-            or m.startswith(("jax.", "jaxlib.", "flax.", "disconet_tpu."))}
+    return {m for m in sys.modules if m in ROOTS or m.startswith(tuple(r + "." for r in ROOTS))}
 before = banned()
 import disconet_tpu_torch
-for info in pkgutil.walk_packages(disconet_tpu_torch.__path__, "disconet_tpu_torch."):
-    __import__(info.name)
+names = [info.name for info in pkgutil.walk_packages(disconet_tpu_torch.__path__, "disconet_tpu_torch.")]
+for name in names:
+    __import__(name)
+print(sorted(names))
 print(sorted(banned() - before))
 """
 
@@ -40,14 +41,20 @@ def test_port_imports_no_jax():
         env={**os.environ, "PYTHONPATH": ROOT},
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    *_, names, leaked = out.stdout.strip().splitlines()
+    assert leaked == "[]", out.stdout
+    for name in ("data.dataset", "data.synthetic", "evaluation.mean_ap", "ops.late_fusion", "training.metrics",
+                 "utils.pose_noise", "tools.det.create_data_det", "tools.det.train_codet", "tools.det.test_codet"):
+        assert f"'disconet_tpu_torch.{name}'" in names, name
 
 
 def test_no_silent_cpu(monkeypatch):
     """Every entry point that picks a device raises without a GPU unless the
     caller asks for the CPU. The step builders run where ``build_model`` put
-    the model and the batch where ``batch_to_device`` put it."""
-    from disconet_tpu_torch.training import batch_to_device
+    the model and the batch where ``batch_to_device`` put it; the CLIs run on
+    the card unless given ``--device cpu``."""
+    from disconet_tpu_torch.tools.det import test_codet, train_codet
+    from disconet_tpu_torch.training import batch_to_device, prefetch_to_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -58,6 +65,11 @@ def test_no_silent_cpu(monkeypatch):
     batch = {"agent_mask": np.ones((1, 2), bool), "bev": np.zeros((1, 2, 4, 4, 13), np.uint8)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_to_device(batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(prefetch_to_device(iter([batch])))
+    for main in (train_codet.main, test_codet.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--data", "no/such/dir"])
     assert resolve_device("cpu").type == "cpu"
     assert batch_to_device(batch, "cpu")["bev_packed"].device.type == "cpu"
 
