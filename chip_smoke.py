@@ -60,6 +60,24 @@ Phases, each printing its own line; any failure exits non-zero:
    loader, the cache's MiB and precompute seconds, both steps' ms and
    ``test_codet``'s scenes/s.
 
+10. the other fusion models and segmentation at the full ``Config()``
+   width, batch 4 x 6 agents with one absent. For each of ``sum``, ``mean``,
+   ``max``, ``cat``, ``agent``, ``v2v``, ``when2com`` and ``who2com``, with
+   seeded random weights: ``predict`` from phase 5's points (both kernels'
+   launch counts must rise; keep masks equal to the plain ops' pipeline,
+   boxes and scores within 1e-4), its scenes/s as the median of 3 windows of
+   20 calls; one train step on phase 7's batch (finite metrics, a finite
+   nonzero gradient in every group of layers), then 3 timed; peak memory;
+   and a float32 forward at the 64-grid on the card within 1e-4 of the CPU.
+   Then DiscoNet segmentation on the UNet: 3 warm-up steps and 5 windows of
+   5 on phase 7's grids with labels learnable from them (the loss must
+   fall), scenes/s, peak memory and the predict step's time; one step on
+   the STPN backbone; one float32 seg step on the card against the CPU
+   (64-grid, loss rtol 1e-4, accuracy within 1e-4); and the seg CLIs
+   in-process under ``build/`` (removed after): ``create_data_seg`` (1
+   scene x 4 frames), ``train_codet --com disco`` 2 epochs, an auto-resumed
+   third, ``test_codet`` (a row per class, a finite mIoU).
+
 Prints the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -67,6 +85,7 @@ Prints the kernels' JSON line, and as its last line
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -515,6 +534,7 @@ def main(argv) -> int:
           + f"; second loss {g2['loss']:.6g} ({rel2:.1e}); limits 1e-4, 1e-3")
 
     cli = _phase9(cfg, host7, tb, kd_step, teacher)
+    other = _phase10(cfg, host7, tb, (pts_d, trans_d, amask_d, anchors))
 
     kernels = [
         {
@@ -524,7 +544,8 @@ def main(argv) -> int:
             "replaces": "disconet_tpu/ops/pallas/voxelize_pallas.py:121",
             "launches": launches["voxelize"],
             "path_launches": {"predict": launches["voxelize"], "trained predict": train_launches["voxelize"],
-                              "test_codet": cli["launches"]["voxelize"]},
+                              "test_codet": cli["launches"]["voxelize"],
+                              **{f"predict {c}": n["voxelize"] for c, n in other.items()}},
             "max_abs_err": vox_err,
             "ms": vox_ms,
             "device_ms": vox_dev_ms,
@@ -540,7 +561,8 @@ def main(argv) -> int:
             "replaces": "disconet_tpu/ops/pallas/rotated_iou_pallas.py:135",
             "launches": launches["rotated_iou"],
             "path_launches": {"predict": launches["rotated_iou"], "trained predict": train_launches["rotated_iou"],
-                              "test_codet": cli["launches"]["rotated_iou"]},
+                              "test_codet": cli["launches"]["rotated_iou"],
+                              **{f"predict {c}": n["rotated_iou"] for c, n in other.items()}},
             "max_abs_err": max(iou_err, main_iou_err),
             "ms": iou_ms,
             "device_ms": iou_dev_ms,
@@ -754,6 +776,194 @@ def _phase9(cfg, host7, tb, kd_step, teacher):
           + ", ".join(f"{k} {v:.3f} ({100 * v / med[k]:.1f}% of {med[k]:.3f} ms)" for k, v in busy.items()))
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s, {data_s:.1f} s of it writing the data")
     return {"launches": launches}
+
+
+OTHER_COMS = ("sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com")
+
+
+def _grad_groups(model):
+    """{group of layers: global norm of its gradients} after a backward."""
+    import torch
+
+    sq = {}
+    for k, p in model.named_parameters():
+        if k.startswith("stpn.stages_"):
+            g = "encoder"
+        elif k.startswith(("stpn.dec_", "stpn.head_conv.")):
+            g = "decoder"
+        elif k.startswith(("heads.", "seg_head.")):
+            g = "heads"
+        else:
+            g = "fusion"
+        sq[g] = sq.get(g, 0.0) + (p.grad.float().square().sum().item() if p.grad is not None else 0.0)
+    return {g: v ** 0.5 for g, v in sq.items()}
+
+
+def _seg_labels(bev_u8, classes):
+    """Labels a model can learn from the grid: the count of occupied z cells
+    of each column, capped at ``classes - 1``."""
+    import numpy as np
+
+    return np.minimum(bev_u8.sum(axis=-1), classes - 1).astype(np.int32)
+
+
+def _phase10(cfg, host7, tb, main_path):
+    """The other fusion models and segmentation (see the module docstring).
+    Returns {com: launches of its predict}."""
+    import numpy as np
+    import torch
+
+    from disconet_tpu_torch import build_model, example_train_batch, predict, tiny_config
+    from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix, rotated_iou_matrix_plain
+    from disconet_tpu_torch.ops.voxelize import voxelize_occupy, voxelize_occupy_plain
+    from disconet_tpu_torch.tools.seg import create_data_seg, test_codet as seg_test, train_codet as seg_train
+    from disconet_tpu_torch.training import (
+        batch_to_device, create_train_state, make_seg_predict_step, make_seg_train_step, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    pts_d, trans_d, amask_d, anchors = main_path
+    small = tiny_config(64, compute_dtype="float32", head_raw_dtype="float32", max_agents=3)
+    s_host = example_train_batch(small, 2, 3, seed=5, occupancy=(0.05, 0.1), boxes_per_frame=4)
+    s_args = [torch.from_numpy(s_host[k]) for k in ("bev", "trans", "agent_mask")]
+    s_args[0] = s_args[0].float()
+    all_launches = {}
+    for com in OTHER_COMS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(com, cfg, seed=3)
+        voxelize_occupy.launches = 0
+        rotated_iou_matrix.launches = 0
+        boxes, scores, keep = predict(model, pts_d, trans_d, amask_d, anchors, cfg)
+        torch.cuda.synchronize()
+        launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
+        if min(launches.values()) < 1:
+            raise AssertionError(f"{com}: a kernel was not launched by predict: {launches}")
+        all_launches[com] = launches
+        pb, ps, pk = predict(model, pts_d, trans_d, amask_d, anchors, cfg,
+                             voxelize=voxelize_occupy_plain, iou=rotated_iou_matrix_plain)
+        if not torch.equal(keep, pk):
+            raise AssertionError(f"{com}: keep masks differ from the plain ops in {int((keep != pk).sum())} slots")
+        err = max((boxes - pb).abs().max().item(), (scores - ps).abs().max().item())
+        if not (torch.isfinite(boxes).all() and err <= 1e-4):
+            raise AssertionError(f"{com}: kernel vs plain pipeline err {err}")
+        windows = [_time_ms(lambda: predict(model, pts_d, trans_d, amask_d, anchors, cfg), iters=20,
+                            warmup=2 if w == 0 else 0) for w in range(3)]
+        predict_ms = sorted(windows)[1]
+        predict_peak = torch.cuda.max_memory_allocated() / 2**30
+        optimizer = create_train_state(model)
+        step = make_train_step(model, cfg, optimizer)
+        first = {k: float(v) for k, v in step(tb).items()}
+        groups = _grad_groups(model)
+        if not all(np.isfinite(v) for v in first.values()) or not all(0 < g < float("inf") for g in groups.values()):
+            raise AssertionError(f"{com}: train step metrics {first}, gradient norms by group {groups}")
+        step_ms = _time_ms(lambda: step(tb), iters=3, warmup=0)
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        del model, optimizer, step
+        # float32 at the 64-grid: the card's forward against the CPU's
+        outs = {}
+        for name in ("cuda", "cpu"):
+            m = build_model(com, small, layer=2, device=name, seed=4)
+            with torch.no_grad():
+                o = m(*(t.to(next(m.parameters()).device) for t in s_args))
+            outs[name] = {k: o[k].cpu() for k in ("cls", "reg")}
+        f32_err = max((outs["cuda"][k] - outs["cpu"][k]).abs().max().item() for k in ("cls", "reg"))
+        if not f32_err <= 1e-4:
+            raise AssertionError(f"{com}: float32 card forward vs CPU err {f32_err}")
+        print(f"fusion {com}: predict {predict_ms:.3f} ms, {BATCH * 1e3 / predict_ms:.2f} scenes/s (median of 3 "
+              f"windows of 20: " + ", ".join(f"{BATCH * 1e3 / w:.2f}" for w in windows) + f"), launches {launches}, "
+              f"{int(keep.sum())} kept, keep equal to the plain ops; train step {step_ms:.3f} ms (loss "
+              f"{first['loss']:.4f}, gradient norms " + ", ".join(f"{g} {v:.3g}" for g, v in sorted(groups.items()))
+              + f"); peak {predict_peak:.2f} GiB predict, {train_peak:.2f} GiB train; f32 64-grid card vs CPU "
+              f"{f32_err:.2e}")
+
+    # segmentation: DiscoNet on the UNet at full width, phase 7's grids
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seg_tb = dict(tb, seg_label=torch.from_numpy(_seg_labels(host7["bev"], cfg.num_seg_classes)).to(tb["trans"].device))
+    model = build_model("disco", cfg, seed=0, task="seg")
+    step = make_seg_train_step(model, cfg, create_train_state(model))
+    history = [step(seg_tb) for _ in range(3)]
+    groups = _grad_groups(model)
+    windows = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            history.append(step(seg_tb))
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / 5)
+    loss = torch.stack([h["loss"] for h in history]).cpu()
+    acc = torch.stack([h["acc"] for h in history]).cpu()
+    if not (torch.isfinite(loss).all() and loss[-1] < loss[0]) or not all(0 < g < float("inf") for g in groups.values()):
+        raise AssertionError(f"seg step: loss {loss.tolist()}, gradient norms {groups}")
+    seg_ms = sorted(windows)[2]
+    seg_peak = torch.cuda.max_memory_allocated() / 2**30
+    pred_step = make_seg_predict_step(model, cfg)
+    pred = pred_step(seg_tb)
+    if pred.shape != tuple(seg_tb["seg_label"].shape) or int(pred.max()) >= cfg.num_seg_classes:
+        raise AssertionError(f"seg predict: shape {tuple(pred.shape)}, max class {int(pred.max())}")
+    pw = [_time_ms(lambda: pred_step(seg_tb), iters=20, warmup=2 if w == 0 else 0) for w in range(3)]
+    seg_pred_ms = sorted(pw)[1]
+    print(f"seg unet: {len(history)} steps, loss {loss[0]:.4f} -> {loss[-1]:.4f}, acc {acc[0]:.4f} -> "
+          f"{acc[-1]:.4f}; {seg_ms:.3f} ms per step of {BATCH} scenes, {BATCH * 1e3 / seg_ms:.2f} scenes/s (median "
+          "of 5 windows of 5: " + ", ".join(f"{w:.3f}" for w in windows) + f" ms), peak {seg_peak:.2f} GiB; "
+          f"predict {seg_pred_ms:.3f} ms, {BATCH * 1e3 / seg_pred_ms:.2f} scenes/s (median of 3 windows of 20)")
+    del model, step, pred_step
+    stpn_cfg = dataclasses.replace(cfg, seg_backbone="stpn")
+    model = build_model("disco", stpn_cfg, seed=0, task="seg")
+    first = {k: float(v) for k, v in make_seg_train_step(model, stpn_cfg, create_train_state(model))(seg_tb).items()}
+    if not all(np.isfinite(v) for v in first.values()):
+        raise AssertionError(f"seg stpn step: {first}")
+    print(f"seg stpn: one step, loss {first['loss']:.4f}, acc {first['acc']:.4f}")
+    del model
+    # float32 seg step at the 64-grid: the card against the CPU
+    s_host["seg_label"] = _seg_labels(s_host["bev"], small.num_seg_classes)
+    got = {}
+    for name in ("cuda", "cpu"):
+        m = build_model("disco", small, layer=2, device=name, seed=6, task="seg")
+        got[name] = {k: float(v) for k, v in
+                     make_seg_train_step(m, small, create_train_state(m))(batch_to_device(s_host, name)).items()}
+    rel = abs(got["cuda"]["loss"] - got["cpu"]["loss"]) / abs(got["cpu"]["loss"])
+    acc_err = abs(got["cuda"]["acc"] - got["cpu"]["acc"])
+    if rel > 1e-4 or acc_err > 1e-4:
+        raise AssertionError(f"float32 seg step card vs CPU: {got}")
+    print(f"card vs CPU seg step (f32, 64-grid): loss {got['cuda']['loss']:.6g} ({rel:.1e}), acc "
+          f"{got['cuda']['acc']:.6g} ({acc_err:.1e}); limits 1e-4")
+
+    # the seg CLIs in-process at full width
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="seg_", dir=build)
+    grid = ["--grid", str(cfg.bev_shape[0])]
+    try:
+        t0 = time.perf_counter()
+        _cli(create_data_seg.main, ["--data", work, "--mode", "synthetic", "--scenes", "1", "--frames", "4", *grid])
+        data_s = time.perf_counter() - t0
+        data, logs = os.path.join(work, "train"), os.path.join(work, "logs")
+        common = ["--data", data, *grid, "--batch", "4", "--com", "disco"]
+        train = [*common, "--logpath", logs, "--log_every", "1"]
+        out, _ = _cli(seg_train.main, [*train, "--nepoch", "2"])
+        epochs = _epochs(out)
+        out, _ = _cli(seg_train.main, [*train, "--nepoch", "3", "--auto_resume_path", logs])
+        epochs += _epochs(out)
+        if "auto-resumed from epoch 2" not in out or [e[0] for e in epochs] != [1, 2, 3]:
+            raise AssertionError(f"seg CLI epochs {epochs}")
+        if not all(np.isfinite(e[1]) for e in epochs):
+            raise AssertionError(f"non-finite seg epoch losses: {epochs}")
+        out, res = _cli(seg_test.main, [*common, "--resume", os.path.join(logs, "disco_seg")])
+        rows = re.findall(r"^\s*(\w+) \|\s+([\d.]+|n/a)$", out, re.M)
+        if len(rows) != cfg.num_seg_classes + 1 or rows[-1][0] != "mIoU" or not np.isfinite(res["miou"]):
+            raise AssertionError(f"seg test_codet table: {rows}")
+        for e, l, sps, wait in epochs:
+            print(f"seg cli epoch {e}: {sps:.2f} scenes/s, loader wait {100 * wait:.1f}%, loss {l:.4f}")
+        print(f"seg cli: data (4 scene-frames) written in {data_s:.2f} s; test_codet mIoU {res['miou']:.4f} over "
+              f"{cfg.num_seg_classes} classes, {res['scenes_per_s']:.2f} scenes/s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return all_launches
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ always runs the natural conv layout.
 
 Geometry: voxel 0.25x0.25x0.4 m over x,y in [-32, 32] m and z in [-3, 2] m, a
 256x256x13 binary BEV occupancy grid; 6 rotated anchors per cell with a
-(dx, dy, dw, dl, sin, cos) box code; binary (background/vehicle) classes.
+(dx, dy, dw, dl, sin, cos) box code; binary (background/vehicle) classes;
+8 BEV segmentation classes.
 """
 
 from __future__ import annotations
@@ -84,6 +85,14 @@ class Config:
     # Storage dtype of the packed (B*A, H, W, 48) head tensor that the NMS
     # reads. The fp32 cls/reg views are always sliced from the fp32 result.
     head_raw_dtype: str = "bfloat16"
+
+    # Segmentation: BEV semantic classes, the backbone of the seg models
+    # ("unet": the reference seg zoo's UNet topology, models/unet.py;
+    # "stpn": the detection pyramid with a 1x1 SegHead) and the UNet widths.
+    # Detection models ignore all three.
+    num_seg_classes: int = 8
+    seg_backbone: str = "unet"
+    unet_channels: Tuple[int, ...] = (64, 128, 256, 512, 512)
 
     @property
     def grid_size(self) -> Tuple[int, int, int]:

@@ -1,2 +1,2 @@
 """Host-side data of the port: the on-disk schema, synthetic scenes, the
-detection dataset and batching, and training targets."""
+detection and segmentation datasets and batching, and training targets."""

@@ -1,4 +1,4 @@
-"""Detection dataset, collation and a batching iterator.
+"""Detection and segmentation datasets, collation and a batching iterator.
 
 The port's own copy of the JAX package's loader. Differences from the
 reference loader, by design:
@@ -126,16 +126,7 @@ class V2XSimDet:
         frames = self.index[self.keys[i]]
         for slot, path in frames.items():
             fr = schema.load_frame(path)
-            student = np.asarray(fr["padded_voxel_points"])
-            teacher = np.asarray(
-                fr.get("padded_voxel_points_teacher", fr["padded_voxel_points"])
-            )
-            if student.ndim == 4:  # squeeze the temporal dim (schema.py)
-                student, teacher = student[0], teacher[0]
-            if self.bound == "upperbound":
-                student = teacher  # early fusion: holistic input
-            bev[slot] = student.astype(np.uint8)
-            bev_teacher[slot] = teacher.astype(np.uint8)
+            self._read_agent(fr, slot, bev, bev_teacher, trans)
             fr_mask = np.asarray(fr["reg_loss_mask"], bool)
             fr_reg = np.asarray(fr["reg_target"], np.float32)
             nz = np.nonzero(fr_mask.reshape(-1))[0]
@@ -169,12 +160,6 @@ class V2XSimDet:
                     if "gt_classes" in fr
                     else np.ones((len(gt_boxes[slot]),), np.int32)
                 )
-            # stored trans row j maps agent j -> THIS agent; drop the rsu column
-            # offset when agent 0 was excluded so slots align.
-            tm = np.asarray(fr["trans_matrices"], np.float32)
-            off = 0 if self.rsu else 1
-            n = min(MA, tm.shape[0] - off)
-            trans[slot, :n] = tm[off : off + n]
 
         # sparse positive-anchor targets are always present (the train step
         # rebuilds dense masks on the device, training/det_module._losses);
@@ -205,6 +190,61 @@ class V2XSimDet:
             out["reg_target"] = reg_target
             out["reg_mask"] = reg_mask
         return out
+
+    def _read_agent(self, fr, slot: int, bev, bev_teacher, trans) -> None:
+        """One agent's grids and pose row of a loaded frame ``fr`` into ``slot``."""
+        student = np.asarray(fr["padded_voxel_points"])
+        teacher = np.asarray(fr.get("padded_voxel_points_teacher", fr["padded_voxel_points"]))
+        if student.ndim == 4:  # squeeze the temporal dim (schema.py)
+            student, teacher = student[0], teacher[0]
+        if self.bound == "upperbound":
+            student = teacher  # early fusion: holistic input
+        bev[slot] = student.astype(np.uint8)
+        bev_teacher[slot] = teacher.astype(np.uint8)
+        # stored trans row j maps agent j -> THIS agent; drop the rsu column
+        # offset when agent 0 was excluded so slots align.
+        tm = np.asarray(fr["trans_matrices"], np.float32)
+        off = 0 if self.rsu else 1
+        n = min(self.config.max_agents, tm.shape[0] - off)
+        trans[slot, :n] = tm[off : off + n]
+
+
+class V2XSimSeg(V2XSimDet):
+    """Segmentation dataset: the BEV grids, per-cell class labels
+    ``seg_label`` (max_agents, H, W) int32, poses and the agent mask, with
+    ``rsu``, ``bound``, ``cache_items`` and ``pack_bits`` as in
+    :class:`V2XSimDet`."""
+
+    # overriding _build_item (not __getitem__) keeps the base item cache live
+    def _build_item(self, i: int) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        MA = cfg.max_agents
+        H, W = cfg.map_dims
+        Z = cfg.grid_size[2]
+        bev = np.zeros((MA, H, W, Z), np.uint8)
+        bev_teacher = np.zeros((MA, H, W, Z), np.uint8)
+        seg = np.zeros((MA, H, W), np.int32)
+        trans = np.tile(np.eye(4, dtype=np.float32), (MA, MA, 1, 1))
+        agent_mask = np.zeros((MA,), bool)
+
+        for slot, path in self.index[self.keys[i]].items():
+            fr = schema.load_frame(path)
+            self._read_agent(fr, slot, bev, bev_teacher, trans)
+            seg[slot] = np.asarray(fr["seg_label"], np.int32)
+            agent_mask[slot] = True
+
+        if self.pack_bits:
+            bev_keys = {"bev_packed": pack_bev_np(bev), "bev_teacher_packed": pack_bev_np(bev_teacher)}
+        else:
+            bev_keys = {"bev": bev, "bev_teacher": bev_teacher}
+        return {
+            **bev_keys,
+            "seg_label": seg,
+            "trans": trans,
+            "agent_mask": agent_mask,
+            "num_agent": np.int32(agent_mask.sum()),
+            "scene_frame": np.asarray(self.keys[i], np.int32),
+        }
 
 
 _RAGGED_KEYS = ("gt_boxes", "gt_classes")  # host-only, per-agent ragged lists

@@ -20,8 +20,10 @@ running statistics; one module tree serves both. In training the statistics
 are flax's: the biased variance normalizes and updates the running variance
 (momentum 0.9 in flax's convention), where ``nn.BatchNorm2d`` would update it
 with the unbiased one. The fusion scorer's BatchNorms count only the rows of
-real (receiver, sender) pairs (``pair_mask``); the conv stack's count every
-row, padded agents' zero BEVs included, as the JAX package's do.
+real (receiver, sender) pairs (``pair_mask``), and the concatenating
+fusion's projection only present receivers (``sample_mask``); the conv
+stack's count every row, padded agents' zero BEVs included, as the JAX
+package's do.
 
 Module and parameter names give the JAX package's ``save_pth`` keys, e.g.
 ``stpn.stages_1.ConvBNRelu_0.weight``, ``...BatchNorm_0.running_var``,
@@ -30,7 +32,7 @@ Module and parameter names give the JAX package's ``save_pth`` keys, e.g.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -108,9 +110,14 @@ class ConvBNRelu(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor, store_bf16: bool = False) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, store_bf16: bool = False, sample_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """(N, Cin, H, W) -> (N, Cout, H', W'), fp32; bf16 in the bf16 mode
-        when ``store_bf16`` is set in eval mode.
+        when ``store_bf16`` is set in eval mode. In training with a
+        ``sample_mask`` (N,) the BatchNorm statistics count only the rows
+        where it holds (the JAX package's ``masked_bn``: the concatenating
+        fusion's projection, over present receivers).
 
         BatchNorm reads the conv's output (bf16 in the bf16 mode) and
         computes in fp32 with fp32 parameters. With ``store_bf16`` (detection,
@@ -132,6 +139,9 @@ class ConvBNRelu(nn.Module):
             y = F.conv2d(x.float(), self.weight, stride=self.stride, padding=self.padding)
         bn = self.BatchNorm_0
         if self.training:
+            if sample_mask is not None:  # over the channel-last view, then back
+                y = masked_batch_norm_train(y.float().permute(0, 2, 3, 1), sample_mask, bn)
+                return F.relu(y.permute(0, 3, 1, 2))
             return F.relu_(batch_norm_train(y.float(), bn))
         if not store_bf16:
             y = y.float()
@@ -158,13 +168,16 @@ class ConvBNRelu(nn.Module):
             y = _round_bf16(y)
         return self._bn_relu_last(y, mask)
 
-    def forward_pair1x1(self, shared: torch.Tensor, per_item: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward_pair1x1(self, shared: torch.Tensor, per_item: torch.Tensor, mask: torch.Tensor,
+                        natural: bool = False) -> torch.Tensor:
         """The 1x1 conv of concat(broadcast(shared), per_item), channel-last.
 
         ``shared`` (N, h, w, Cs) and ``per_item`` (N*S, h, w, Cp) -> (N*S, h, w, Cout).
         The kernel is split along its input axis, so the shared half projects
         once per group of S rows and the concat is never built. ``mask``
-        (N*S,) as in :meth:`forward_last`.
+        (N*S,) as in :meth:`forward_last`. The sum stays an fp32 accumulator,
+        as the JAX package's ``pair1x1`` mode keeps it; ``natural`` rounds it
+        to bf16 in the bf16 mode, as the natural conv of the concat returns it.
         """
         Cs = shared.shape[-1]
         w = self.weight[:, :, 0, 0]
@@ -172,6 +185,8 @@ class ConvBNRelu(nn.Module):
         p_proj = self._dot(per_item, w[:, Cs:])
         N, h, wd, Fo = s_proj.shape
         y = (s_proj[:, None] + p_proj.reshape(N, -1, h, wd, Fo)).reshape(-1, h, wd, Fo)
+        if natural and self.bf16:
+            y = _round_bf16(y)
         return self._bn_relu_last(y, mask)
 
 
@@ -220,26 +235,30 @@ class STPN(nn.Module):
             )
         self.head_conv = ConvBNRelu(self.channels[0], head_channels, bf16=bf16)
 
-    def encode(self, x: torch.Tensor, store_bf16: bool = False) -> List[torch.Tensor]:
-        """All encoder stages; returns the list of stage outputs."""
+    def encode(self, x: torch.Tensor, store_bf16: bool = False, fp32_stage: Optional[int] = None
+               ) -> List[torch.Tensor]:
+        """All encoder stages; returns the list of stage outputs. Stage
+        ``fp32_stage`` stores fp32 whatever ``store_bf16`` says (the fusion
+        layer of the models that fuse fp32 maps, ``models/base.py``)."""
         feats = []
         for i in range(len(self.channels)):
-            x = getattr(self, f"stages_{i}")(x, store_bf16)
+            x = getattr(self, f"stages_{i}")(x, store_bf16 and i != fp32_stage)
             feats.append(x)
         return feats
 
     def decode(
-        self, feats: Sequence[torch.Tensor], store_bf16: bool = False
+        self, feats: Sequence[torch.Tensor], store_bf16: bool = False, head_fp32: bool = False
     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """Skip decoder over the stage list -> (the (N, head_channels, H, W)
         head input, the KD taps): the taps are the decoder stages' outputs
-        coarse to fine, then the head input."""
+        coarse to fine, then the head input. ``head_fp32`` stores the head
+        input fp32 whatever ``store_bf16`` says (the SegHead reads fp32)."""
         x = feats[-1]
         taps = []
         for i in reversed(range(len(self.channels) - 1)):
             x = getattr(self, f"dec_{i}")(x, feats[i], store_bf16)
             taps.append(x)
-        head_in = self.head_conv(x, store_bf16)
+        head_in = self.head_conv(x, store_bf16 and not head_fp32)
         taps.append(head_in)
         return head_in, taps
 
@@ -283,6 +302,19 @@ class DetectionHeads(nn.Module):
         cls = raw[..., :n_cls].reshape(N, H, W, NC, NA).transpose(-1, -2)
         reg = raw[..., n_cls:].reshape(N, H, W, NA, code)
         return cls, reg, raw.to(self.raw_dtype), raw
+
+
+class SegHead(nn.Module):
+    """1x1 conv with a bias, per BEV cell -> class logits, fp32 on fp32 input."""
+
+    def __init__(self, cin: int, num_classes: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, C, H, W) -> (N, H, W, num_classes) float32."""
+        w = self.Conv_0.weight[:, :, 0, 0]
+        return x.permute(0, 2, 3, 1).float() @ w.t() + self.Conv_0.bias
 
 
 def make_stpn(config: Config) -> STPN:

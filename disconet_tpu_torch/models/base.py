@@ -1,37 +1,49 @@
-"""Fusion core: the shared forward of the intermediate-collaboration detectors.
+"""Fusion core: the shared forward of the intermediate-collaboration models.
 
-Encode every agent's BEV with the STPN, warp every sender's stage-``layer``
-map into every receiver's frame, fuse (the subclass's ``fuse``), put the fused
-map in place of the stage-``layer`` skip and decode with the other skips
-per agent, then the detection heads. Absent agents are carried by a boolean
-``agent_mask``; they still flow through the conv stack as all-zero BEVs, and
-the fusion gives them no weight as senders.
+Encode every agent's BEV with the backbone, warp every sender's
+stage-``layer`` map into every receiver's frame, fuse (the subclass's
+``fuse``), put the fused map in place of the stage-``layer`` skip and decode
+with the other skips per agent, then the task's heads. Absent agents are
+carried by a boolean ``agent_mask``; they still flow through the conv stack
+(and its unmasked BatchNorm statistics) as all-zero BEVs, and the fusion
+gives them no weight as senders. Only the scorers of ``cat`` and ``agent``
+(and DiscoNet's) mask their BatchNorm statistics.
 
-With ``store_bf16`` (detection, see ``ConvBNRelu.forward``) the eval-mode
-bf16 compute mode's fusion-layer maps arrive in bf16, so the warp samples
-bf16 maps (accumulating in fp32) and returns bf16, as the JAX package warps
-at inference on the TPU; the fused map is fp32. Elsewhere, training and the
-KD teacher included, the maps and the warp are fp32 in either mode, as in
-the JAX package's training. The warp's backward is an
+``task`` "det" gives the detection heads, "seg" a ``SegHead`` over the
+backbone that ``config.seg_backbone`` names (the UNet or the STPN); the
+attribute is ``stpn`` either way, as in the JAX package's key layout.
+
+With ``store_bf16`` (inference, see ``ConvBNRelu.forward``) the eval-mode
+bf16 compute mode stores its maps in bf16. DiscoNet's fusion-layer map is
+stored so too, so its warp samples bf16 maps (accumulating in fp32), as the
+JAX package warps at inference on the TPU; its scorer casts to bf16 anyway.
+Every other fusion model keeps the fusion-layer map fp32
+(``fusion_store_bf16`` False): V2VNet's hidden state, When2com's unwarped
+values and the naive sums, means and maxima read it as the JAX package's do.
+Training and the KD teacher store fp32 throughout. The warp's backward is an
 ``index_add`` into the sampled map (atomics on the card), so its gradient is
 not bit-reproducible from run to run there.
 
-The public outputs keep the JAX package's layout: cls (B, A, H, W, NA, NC),
-reg (B, A, H, W, NA, code), head_raw (B, A, H, W, NA*(NC + code)) in
-``head_raw_dtype``, head_raw_f32 (the same unrounded, fp32) and, with
-``kd_flag``, kd_feats: the five KD taps, each (B, A, h, w, c) fp32.
+The public outputs keep the JAX package's layout: for "det" cls (B, A, H, W,
+NA, NC), reg (B, A, H, W, NA, code), head_raw (B, A, H, W, NA*(NC + code)) in
+``head_raw_dtype`` and head_raw_f32 (the same unrounded, fp32); for "seg"
+seg (B, A, H, W, num_seg_classes) fp32; with ``kd_flag``, kd_feats: the KD
+taps, each (B, A, h, w, c) fp32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from disconet_tpu_torch.config import Config
-from disconet_tpu_torch.models.backbone import DetectionHeads, make_heads, make_stpn
+from disconet_tpu_torch.models.backbone import SegHead, make_heads, make_stpn
+from disconet_tpu_torch.models.unet import make_unet, use_unet
 from disconet_tpu_torch.ops.warp import warp_features
+
+TASKS = ("det", "seg")
 
 
 def agents_to_batch(x: torch.Tensor) -> torch.Tensor:
@@ -44,12 +56,34 @@ def batch_to_agents(x: torch.Tensor, batch: int, agents: int) -> torch.Tensor:
     return x.reshape((batch, agents) + tuple(x.shape[1:]))
 
 
+def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple) -> torch.Tensor:
+    """Every sender's map in every receiver's frame: feats (B, A, h, w, C),
+    trans (B, A, A, 4, 4) -> (B, Ar, As, h, w, C), zeros outside each
+    sender's field of view (the gather form of ``ops/warp.py``)."""
+    return warp_features(feats, trans, extent_xy)
+
+
 def sender_softmax(scores: torch.Tensor, agent_mask: torch.Tensor) -> torch.Tensor:
     """Per-pixel softmax over the sender axis of (B, Ar, As, h, w), over present
     senders only (self-edge included): absent senders get weight exactly 0."""
     neg = torch.finfo(scores.dtype).min
     m = agent_mask[:, None, :, None, None]
     return torch.softmax(torch.where(m, scores, torch.full_like(scores, neg)), dim=2)
+
+
+def masked_sender_reduce(warped: torch.Tensor, agent_mask: torch.Tensor, op: str) -> torch.Tensor:
+    """sum, mean (over present senders, the count clamped at 1) or max (absent
+    senders at ``finfo.min``) over the sender axis of (B, Ar, As, h, w, C)."""
+    m = agent_mask[:, None, :, None, None, None]
+    if op == "sum":
+        return (warped * m.to(warped.dtype)).sum(dim=2)
+    if op == "mean":
+        mf = m.to(warped.dtype)
+        return (warped * mf).sum(dim=2) / mf.sum(dim=2).clamp(min=1.0)
+    if op == "max":
+        neg = torch.full_like(warped, torch.finfo(warped.dtype).min)
+        return torch.where(m, warped, neg).amax(dim=2)
+    raise ValueError(op)
 
 
 def bev_to_batch(bev: torch.Tensor) -> torch.Tensor:
@@ -59,18 +93,38 @@ def bev_to_batch(bev: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def detection_outputs(
-    heads: DetectionHeads, head_in: torch.Tensor, taps: List[torch.Tensor], B: int, A: int, kd_flag: bool
-) -> Dict[str, torch.Tensor]:
-    """The heads on the (B*A, C, H, W) head input -> the output dict."""
-    cls, reg, raw, raw_f32 = heads(head_in)
-    out = {
-        "cls": batch_to_agents(cls, B, A),
-        "reg": batch_to_agents(reg, B, A),
-        "head_raw": batch_to_agents(raw, B, A),
-        "head_raw_f32": batch_to_agents(raw_f32, B, A),
-    }
-    if kd_flag:  # (N, c, h, w) -> (B, A, h, w, c), free for channels_last maps
+def attach_backbone_and_heads(model: nn.Module, config: Config, task: str) -> None:
+    """``model.stpn`` (the UNet for seg with ``seg_backbone`` "unet", else the
+    STPN) and ``model.heads`` (det) or ``model.seg_head`` (seg)."""
+    if task not in TASKS:
+        raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+    model.task = task
+    if use_unet(config, task):
+        model.stpn = make_unet(config)
+        head_in = config.unet_channels[0]
+    else:
+        model.stpn = make_stpn(config)
+        head_in = config.head_channels
+    if task == "det":
+        model.heads = make_heads(config)
+    else:
+        model.seg_head = SegHead(head_in, config.num_seg_classes)
+
+
+def head_outputs(model: nn.Module, head_in: torch.Tensor, taps: List[torch.Tensor], B: int, A: int
+                 ) -> Dict[str, torch.Tensor]:
+    """The task's heads on the (B*A, C, H, W) head input -> the output dict."""
+    if model.task == "det":
+        cls, reg, raw, raw_f32 = model.heads(head_in)
+        out = {
+            "cls": batch_to_agents(cls, B, A),
+            "reg": batch_to_agents(reg, B, A),
+            "head_raw": batch_to_agents(raw, B, A),
+            "head_raw_f32": batch_to_agents(raw_f32, B, A),
+        }
+    else:
+        out = {"seg": batch_to_agents(model.seg_head(head_in), B, A)}
+    if model.kd_flag:  # (N, c, h, w) -> (B, A, h, w, c), free for channels_last maps
         out["kd_feats"] = [batch_to_agents(t.permute(0, 2, 3, 1).float(), B, A) for t in taps]
     return out
 
@@ -78,21 +132,29 @@ def detection_outputs(
 class IntermediateFusionModel(nn.Module):
     """Encode per agent -> fuse at ``layer`` -> decode with skips -> heads."""
 
-    def __init__(self, config: Config, layer: int = 3, kd_flag: bool = False):
+    # store the fusion-layer map in bf16 under store_bf16 (DiscoNet only)
+    fusion_store_bf16 = False
+
+    def __init__(self, config: Config, layer: int = 3, kd_flag: bool = False, task: str = "det"):
         super().__init__()
         self.config = config
         self.layer = layer
         self.kd_flag = kd_flag
-        self.stpn = make_stpn(config)
-        self.heads = make_heads(config)
+        # whether fuse reads the warped maps (When2com without warp_flag does not)
+        self.uses_warp = True
+        attach_backbone_and_heads(self, config, task)
 
     @property
     def layer_channels(self) -> int:
-        ch = self.config.backbone_channels
+        """Channels of the fused map at this model's ``layer``, on its backbone."""
+        ch = self.config.unet_channels if use_unet(self.config, self.task) else self.config.backbone_channels
         return ch[min(self.layer, len(ch) - 1)]
 
-    def fuse(self, feats_k: torch.Tensor, warped: torch.Tensor, agent_mask: torch.Tensor) -> torch.Tensor:
-        """feats_k (B, A, h, w, C), warped (B, Ar, As, h, w, C) -> (B, A, h, w, C)."""
+    def fuse(self, feats_k: torch.Tensor, warped: Optional[torch.Tensor], agent_mask: torch.Tensor,
+             trans: torch.Tensor) -> torch.Tensor:
+        """feats_k (B, A, h, w, C), warped (B, Ar, As, h, w, C) or None,
+        agent_mask (B, A) bool, trans (B, A, A, 4, 4) for a re-warp
+        -> (B, A, h, w, C)."""
         raise NotImplementedError
 
     def forward(
@@ -101,15 +163,14 @@ class IntermediateFusionModel(nn.Module):
         """bev (B, A, H, W, Z), trans (B, A, A, 4, 4), agent_mask (B, A) bool;
         ``store_bf16`` as ``ConvBNRelu.forward``."""
         B, A = bev.shape[:2]
-        feats = self.stpn.encode(bev_to_batch(bev), store_bf16)
-
         k = self.layer
+        feats = self.stpn.encode(bev_to_batch(bev), store_bf16, None if self.fusion_store_bf16 else k)
         fk = batch_to_agents(feats[k].permute(0, 2, 3, 1), B, A)  # (B, A, h, w, C)
-        warped = warp_features(fk, trans, self.config.area_extents[:2])
-        fused = self.fuse(fk, warped, agent_mask.to(torch.bool))
+        warped = warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
+        fused = self.fuse(fk, warped, agent_mask.to(torch.bool), trans)
         feats = list(feats)
         feats[k] = agents_to_batch(fused).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last
         )
-        head_in, taps = self.stpn.decode(feats, store_bf16)
-        return detection_outputs(self.heads, head_in, taps, B, A, self.kd_flag)
+        head_in, taps = self.stpn.decode(feats, store_bf16, head_fp32=self.task == "seg")
+        return head_outputs(self, head_in, taps, B, A)

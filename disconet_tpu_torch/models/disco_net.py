@@ -44,13 +44,15 @@ class PixelWeightedFusion(nn.Module):
 class DiscoNet(IntermediateFusionModel):
     """Intermediate-collaboration student with DiscoGraph fusion."""
 
-    def __init__(self, config, layer: int = 3, kd_flag: bool = False):
-        super().__init__(config, layer, kd_flag)
+    fusion_store_bf16 = True  # the scorer casts to bf16; the sum is fp32
+
+    def __init__(self, config, layer: int = 3, kd_flag: bool = False, task: str = "det"):
+        super().__init__(config, layer, kd_flag, task)
         self.weight_net = PixelWeightedFusion(
             self.layer_channels, bf16=config.compute_dtype == "bfloat16"
         )
 
-    def fuse(self, feats_k, warped, agent_mask):
+    def fuse(self, feats_k, warped, agent_mask, trans):
         B, Ar, As, h, w, C = warped.shape
         pair_mask = (agent_mask[:, :, None] & agent_mask[:, None, :]).reshape(B * Ar * As)
         scores = self.weight_net(

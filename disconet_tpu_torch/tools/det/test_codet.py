@@ -9,8 +9,9 @@ dumps per-agent, per-scene detection files under
 ``{logpath}/{mode}/{no_rsu|with_rsu}/{split}/det_dumps/``. Runs on the card
 unless ``--device cpu``: batches are copied ahead on a worker thread and
 batch n+1's predict is dispatched before batch n's outputs are read. The
-rotated NMS runs the IoU kernel on every batch. ``--visualization 1`` is not
-ported (ROADMAP.md Queue 1, item 12).
+rotated NMS runs the IoU kernel on every batch. Every ``--com`` evaluates,
+with ``--warp_flag`` and ``--gru_rounds`` as in training. ``--visualization
+1`` is not ported (ROADMAP.md Queue 1, item 12).
 """
 
 from __future__ import annotations

@@ -12,10 +12,11 @@ Adam; the newest ``--ckpt_keep`` kept) and, with ``--save_pth 1``, an
 ``--resume_teacher`` take a ``.pth`` file, a ``ckpt/`` directory or the log
 directory holding one; the JAX package's orbax directories are not read.
 
-Not ported; each exits naming its ROADMAP item: ``--remat 1``,
-``--steps_per_dispatch`` > 1, ``--mesh_agent``/``--mesh_spatial`` > 1,
-``--visualization 1``, ``--debug_nans 1`` and the fusion models other than
-``disco``.
+Every ``--com`` of the JAX CLI trains, with ``--warp_flag`` (when2com,
+who2com) and ``--gru_rounds`` (v2v); the log directory does not name them,
+as in the JAX CLI. Not ported; each exits naming its ROADMAP item:
+``--remat 1``, ``--steps_per_dispatch`` > 1, ``--mesh_agent``/
+``--mesh_spatial`` > 1, ``--visualization 1``, ``--debug_nans 1``.
 """
 
 from __future__ import annotations
@@ -128,14 +129,17 @@ def mode_name(args) -> str:
     return (args.com or args.bound or "lowerbound") + ("_kd" if args.kd_flag else "")
 
 
-def build(args, cfg, device, kd_flag=False):
-    """``build_model`` for ``--com``/``--bound``; a fusion model the port does
-    not have exits."""
+def build(args, cfg, device, kd_flag=False, task="det"):
+    """``build_model`` for ``--com``/``--bound`` with ``--layer`` and, where
+    the CLI has them, ``--seed``, ``--warp_flag`` and ``--gru_rounds``; an
+    unknown ``--com`` or a misplaced ``--gru_rounds`` exits."""
     try:
         return build_model(args.com or args.bound, cfg, layer=args.layer, device=device,
-                           seed=args.seed, kd_flag=kd_flag)
+                           seed=getattr(args, "seed", 0),
+                           kd_flag=kd_flag, warp_flag=bool(getattr(args, "warp_flag", 1)), task=task,
+                           gru_rounds=getattr(args, "gru_rounds", 0))
     except ValueError as e:
-        raise SystemExit(f"{e} (ROADMAP.md Queue 1, item 13)") from None
+        raise SystemExit(str(e)) from None
 
 
 def load_student_ckpt(args, model, optimizer) -> int:

@@ -1,5 +1,5 @@
-"""Detection training of the port: train, eval and predict steps, the KD
-feature cache, device prefetch, metrics logging."""
+"""Training of the port: the detection and segmentation train, eval and
+predict steps, the KD feature cache, device prefetch, metrics logging."""
 
 from disconet_tpu_torch.training.det_module import (
     batch_to_device,
@@ -14,15 +14,25 @@ from disconet_tpu_torch.training.det_module import (
     teacher_feat_bytes,
 )
 from disconet_tpu_torch.training.metrics import AverageMeter, MetricLogger
+from disconet_tpu_torch.training.seg_module import (
+    create_seg_train_state,
+    iou_per_class,
+    make_seg_predict_step,
+    make_seg_train_step,
+)
 
 __all__ = [
     "AverageMeter",
     "MetricLogger",
     "batch_to_device",
+    "create_seg_train_state",
     "create_train_state",
     "get_bev",
+    "iou_per_class",
     "make_eval_step",
     "make_predict_step",
+    "make_seg_predict_step",
+    "make_seg_train_step",
     "make_train_step",
     "pipeline_one_deep",
     "precompute_teacher_feats",

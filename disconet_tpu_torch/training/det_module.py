@@ -66,6 +66,7 @@ _DEVICE_KEYS = (
     "trans",
     "agent_mask",
     "frame_idx",
+    "seg_label",
 )
 # the dense targets are redundant when the sparse encoding is present
 _DENSE_TARGET_KEYS = ("label_one_hot", "reg_target", "reg_mask")

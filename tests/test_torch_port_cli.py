@@ -34,6 +34,7 @@ from disconet_tpu_torch.checkpoint import load_state_dict_strict, restore_or_die
 from disconet_tpu_torch.config import Config, default_fusion_layer
 from disconet_tpu_torch.data.dataset import V2XSimDet, collate_det
 from disconet_tpu_torch.tools.det import create_data_det, test_codet, train_codet
+from disconet_tpu_torch.tools.seg import create_data_seg
 from disconet_tpu_torch.training import (
     batch_to_device,
     create_train_state,
@@ -389,14 +390,14 @@ def test_cli_kd_cycle_late_fusion_and_pose_noise(capsys, cli_data, tmp_path):
     (train_codet.main, ["--mesh_spatial", "2"], "item 16"),
     (train_codet.main, ["--visualization", "1"], "item 12"),
     (train_codet.main, ["--debug_nans", "1"], "item 12"),
-    (train_codet.main, ["--com", "v2v"], "item 13"),
+    (test_codet.main, ["--warp_dtype", "float32"], "item 12"),
     (test_codet.main, ["--visualization", "1"], "item 12"),
-    (test_codet.main, ["--com", "when2com"], "item 13"),
+    (create_data_seg.main, ["--mode", "nuscenes"], "item 11"),
     (create_data_det.main, ["--mode", "nuscenes"], "item 11"),
 ])
 def test_cli_refuses_what_is_not_ported(cli_data, tmp_path, main, argv, needle):
-    extra = [] if main is create_data_det.main else ["--grid", "32", "--batch", "2", "--device", "cpu",
-                                                     "--logpath", str(tmp_path)]
+    extra = [] if main in (create_data_det.main, create_data_seg.main) else [
+        "--grid", "32", "--batch", "2", "--device", "cpu", "--logpath", str(tmp_path)]
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1, .*{needle}"):
         main(["--data", cli_data, *extra, *argv])
 

@@ -3,7 +3,8 @@
 * importing the port pulls in no JAX and nothing of the JAX package;
 * an entry point without ``device="cpu"`` raises when there is no GPU;
 * on a GPU (marker ``gpu``, skipped without one), each CUDA kernel matches its
-  plain PyTorch version, and a bf16 KD train step runs. ``python3
+  plain PyTorch version, a bf16 KD train step and a bf16 seg step run, and
+  two other fusion models' ``predict`` launch both kernels. ``python3
   chip_smoke.py`` runs the same checks at the main path's full shapes.
 """
 
@@ -44,7 +45,10 @@ def test_port_imports_no_jax():
     *_, names, leaked = out.stdout.strip().splitlines()
     assert leaked == "[]", out.stdout
     for name in ("data.dataset", "data.synthetic", "evaluation.mean_ap", "ops.late_fusion", "training.metrics",
-                 "utils.pose_noise", "tools.det.create_data_det", "tools.det.train_codet", "tools.det.test_codet"):
+                 "utils.pose_noise", "tools.det.create_data_det", "tools.det.train_codet", "tools.det.test_codet",
+                 "models.naive_fusion", "models.v2v_net", "models.when2com", "models.unet",
+                 "training.seg_module", "tools.seg.create_data_seg", "tools.seg.train_codet",
+                 "tools.seg.test_codet"):
         assert f"'disconet_tpu_torch.{name}'" in names, name
 
 
@@ -54,20 +58,22 @@ def test_no_silent_cpu(monkeypatch):
     the model and the batch where ``batch_to_device`` put it; the CLIs run on
     the card unless given ``--device cpu``."""
     from disconet_tpu_torch.tools.det import test_codet, train_codet
+    from disconet_tpu_torch.tools.seg import test_codet as seg_test, train_codet as seg_train
     from disconet_tpu_torch.training import batch_to_device, prefetch_to_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
-    for com in ("disco", "teacher", ""):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            build_model(com, tiny_config(16))
+    for com in ("disco", "teacher", "", "sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com"):
+        for task in ("det", "seg"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_model(com, tiny_config(16), task=task)
     batch = {"agent_mask": np.ones((1, 2), bool), "bev": np.zeros((1, 2, 4, 4, 13), np.uint8)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_to_device(batch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         next(prefetch_to_device(iter([batch])))
-    for main in (train_codet.main, test_codet.main):
+    for main in (train_codet.main, test_codet.main, seg_train.main, seg_test.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--data", "no/such/dir"])
     assert resolve_device("cpu").type == "cpu"
@@ -100,6 +106,51 @@ def test_kd_train_step_on_the_card(cuda):
     assert not torch.equal(model.stpn.stages_0.ConvBNRelu_0.BatchNorm_0.running_var, var0)
     for k, v in teacher.state_dict().items():
         assert torch.equal(v, t_state[k]), k
+
+
+@pytest.mark.gpu
+def test_seg_train_step_on_the_card(cuda):
+    """One bf16 seg step of DiscoNet on the UNet at the 64-grid: finite
+    metrics, every parameter with a gradient, the BatchNorm statistics
+    moved; the predict step's classes in range."""
+    from disconet_tpu_torch import example_train_batch
+    from disconet_tpu_torch.training import batch_to_device, make_seg_predict_step, make_seg_train_step
+    from disconet_tpu_torch.training.seg_module import create_seg_train_state
+
+    cfg = tiny_config(64)
+    host = example_train_batch(cfg, 2, 3, seed=0, occupancy=(0.05, 0.1), boxes_per_frame=2)
+    host["seg_label"] = np.random.default_rng(0).integers(0, cfg.num_seg_classes, (2, 3, 64, 64)).astype(np.int32)
+    batch = batch_to_device(host)
+    model = build_model("disco", cfg, layer=2, task="seg")
+    var0 = model.stpn.stages_0.ConvBNRelu_0.BatchNorm_0.running_var.clone()
+    metrics = make_seg_train_step(model, cfg, create_seg_train_state(model))(batch)
+    assert set(metrics) == {"loss", "acc"} and all(torch.isfinite(v).item() for v in metrics.values())
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    assert not torch.equal(model.stpn.stages_0.ConvBNRelu_0.BatchNorm_0.running_var, var0)
+    pred = make_seg_predict_step(model, cfg)(batch)
+    assert pred.shape == (2, 3, 64, 64) and 0 <= pred.min().item() and pred.max().item() < cfg.num_seg_classes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("com", ["v2v", "cat"])
+def test_fusion_predict_on_the_card(cuda, com):
+    """``predict`` of another fusion model from points at the 64-grid: both
+    kernels launched, the keep mask equal to the plain ops' pipeline."""
+    from disconet_tpu_torch import example_batch, make_anchors, predict
+    from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix, rotated_iou_matrix_plain
+    from disconet_tpu_torch.ops.voxelize import voxelize_occupy, voxelize_occupy_plain
+
+    cfg = tiny_config(64)
+    _, trans, mask = example_batch(cfg, 2, cfg.max_agents, seed=0)
+    mask[1, -1] = False
+    pts = np.random.default_rng(0).uniform([-8, -8, -3], [8, 8, 2], (2, cfg.max_agents, 4096, 3)).astype(np.float32)
+    model = build_model(com, cfg, layer=2, seed=1)
+    before = (voxelize_occupy.launches, rotated_iou_matrix.launches)
+    boxes, scores, keep = predict(model, pts, trans, mask, make_anchors(cfg), cfg)
+    assert voxelize_occupy.launches > before[0] and rotated_iou_matrix.launches > before[1]
+    _, _, plain_keep = predict(model, pts, trans, mask, make_anchors(cfg), cfg,
+                               voxelize=voxelize_occupy_plain, iou=rotated_iou_matrix_plain)
+    assert torch.equal(keep, plain_keep) and torch.isfinite(boxes).all()
 
 
 @pytest.mark.gpu
