@@ -53,6 +53,13 @@ Phases, each printing its own line; any failure exits non-zero:
    under torch.profiler with ``--tracking`` (the table parses, its ``#gt``
    is the dataset's, the IoU kernel ran on every predict batch, the dumps
    exist), again to time it, and with late fusion and with pose noise.
+   The tracking tools read its dumps: ``sort``, then ``eval_mot`` against
+   the dataset's ground truth (the ``track cli:`` line; a finite avg row).
+   ``test_codet --warp_dtype float32`` (its table counts the dataset's
+   ``#gt``); ``train_codet --debug_nans 1``: one epoch that finishes, then
+   a run from a checkpoint with a NaN planted in a head bias, which must
+   stop at step 1; ``--visualization 1``: pngs where matplotlib imports,
+   else the exit that names it.
    Then a KD step from a float32 cache against the re-forward step on the
    card (64-grid, rtol 1e-5 on loss and kd_loss), and at full width in
    bf16 the two steps timed in turns on phase 7's batch. Prints each
@@ -77,6 +84,14 @@ Phases, each printing its own line; any failure exits non-zero:
    in-process under ``build/`` (removed after): ``create_data_seg`` (1
    scene x 4 frames), ``train_codet --com disco`` 2 epochs, an auto-resumed
    third, ``test_codet`` (a row per class, a finite mIoU).
+11. the other NMS entry points at the main path's shapes: ``predict`` with
+   ``packed_nms`` (both kernels' launch counts must rise); on the same head
+   outputs, ``rotated_nms_decode_packed`` against the score path: boxes,
+   scores and keep equal except in frames where two distinct logit
+   differences give the same float32 sigmoid (counted and printed); the two
+   ``predict`` in turns, 3 windows of 20 calls each; ``rotated_nms`` on
+   caller boxes and the flat layout of ``rotated_nms_decode`` with the IoU
+   kernel against the plain IoU: keep and boxes equal.
 
 Prints the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -535,6 +550,7 @@ def main(argv) -> int:
 
     cli = _phase9(cfg, host7, tb, kd_step, teacher)
     other = _phase10(cfg, host7, tb, (pts_d, trans_d, amask_d, anchors))
+    packed = _phase11(cfg, model, (pts_d, trans_d, amask_d, anchors))
 
     kernels = [
         {
@@ -545,7 +561,8 @@ def main(argv) -> int:
             "launches": launches["voxelize"],
             "path_launches": {"predict": launches["voxelize"], "trained predict": train_launches["voxelize"],
                               "test_codet": cli["launches"]["voxelize"],
-                              **{f"predict {c}": n["voxelize"] for c, n in other.items()}},
+                              **{f"predict {c}": n["voxelize"] for c, n in other.items()},
+                              "predict packed_nms": packed["voxelize"]},
             "max_abs_err": vox_err,
             "ms": vox_ms,
             "device_ms": vox_dev_ms,
@@ -562,7 +579,8 @@ def main(argv) -> int:
             "launches": launches["rotated_iou"],
             "path_launches": {"predict": launches["rotated_iou"], "trained predict": train_launches["rotated_iou"],
                               "test_codet": cli["launches"]["rotated_iou"],
-                              **{f"predict {c}": n["rotated_iou"] for c, n in other.items()}},
+                              **{f"predict {c}": n["rotated_iou"] for c, n in other.items()},
+                              "predict packed_nms": packed["rotated_iou"]},
             "max_abs_err": max(iou_err, main_iou_err),
             "ms": iou_ms,
             "device_ms": iou_dev_ms,
@@ -640,6 +658,7 @@ def _phase9(cfg, host7, tb, kd_step, teacher):
     from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
     from disconet_tpu_torch.ops.voxelize import voxelize_occupy
     from disconet_tpu_torch.tools.det import create_data_det, test_codet, train_codet
+    from disconet_tpu_torch.tools.track import eval_mot, sort
     from disconet_tpu_torch.training import (
         batch_to_device, create_train_state, make_train_step, precompute_teacher_feats, teacher_feat_bytes,
     )
@@ -706,6 +725,22 @@ def _phase9(cfg, host7, tb, kd_step, teacher):
             raise AssertionError("no tracking dumps")
         print(f"test_codet: launches {launches} for {n_batches} predict batches, {traced} IoU kernels in the "
               f"trace, {len(dumps)} tracking dumps, #gt {n_gt} as the dataset")
+        tracks = os.path.join(os.path.dirname(dump_dir), "tracks")
+        out, _ = _cli(sort.main, ["--det_logs_path", dump_dir, "--out", tracks])
+        n_rows = sum(int(n) for n in re.findall(r": (\d+) track rows", out))
+        out, mot = _cli(eval_mot.main, ["--data", data, "--tracks", tracks, *grid])
+        if not re.search(r"^\s*avg \|", out, re.M) or not all(np.isfinite(mot[k]) for k in ("MOTA", "MOTP")):
+            raise AssertionError(f"eval_mot printed no finite avg row: {mot}")
+        print(f"track cli: {n_rows} track rows from {len(dumps)} dumps; MOTA {mot['MOTA']:.4f}, "
+              f"MOTP {mot['MOTP']:.4f}")
+        out, _ = _cli(test_codet.main, [*evaluate, "--warp_dtype", "float32"])
+        f32_table = _mean_ap_table(out)
+        if f32_table["average"][2] != n_gt:
+            raise AssertionError(f"--warp_dtype float32: the table counts {f32_table['average'][2]} gt boxes")
+        print(f"test_codet --warp_dtype float32: mAP@0.5 {f32_table['average'][0]:.4f}, mAP@0.7 "
+              f"{f32_table['average'][1]:.4f}, #gt {n_gt} as the dataset (bf16 store: "
+              f"{table['average'][0]:.4f}, {table['average'][1]:.4f})")
+        _debug_nans_and_vis(cfg, common, evaluate, logs)
         out, result = _cli(test_codet.main, evaluate)
         if _mean_ap_table(out) != table:
             raise AssertionError("a second evaluation of the same checkpoint gave another table")
@@ -776,6 +811,139 @@ def _phase9(cfg, host7, tb, kd_step, teacher):
           + ", ".join(f"{k} {v:.3f} ({100 * v / med[k]:.1f}% of {med[k]:.3f} ms)" for k, v in busy.items()))
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s, {data_s:.1f} s of it writing the data")
     return {"launches": launches}
+
+
+def _debug_nans_and_vis(cfg, common, evaluate, logs):
+    """``train_codet --debug_nans 1``: one epoch that finishes, and a run from
+    a checkpoint with a planted NaN that stops at step 1; ``--visualization
+    1``: pngs where matplotlib imports, else the exit that names it."""
+    import torch
+
+    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch.checkpoint import restore_or_die, save_pth
+    from disconet_tpu_torch.tools.det import test_codet, train_codet
+
+    t0 = time.perf_counter()
+    nan_logs = os.path.join(logs, "debug_nans")
+    train = [*common[:-4], "--bound", "lowerbound", "--nepoch", "1", "--debug_nans", "1"]  # no --logpath
+    out, _ = _cli(train_codet.main, [*train, "--logpath", nan_logs])
+    if "epoch 1 done" not in out or torch.is_anomaly_enabled():
+        raise AssertionError("the --debug_nans epoch did not finish, or left anomaly mode on")
+    model = build_model("lowerbound", cfg, seed=0)
+    restore_or_die(os.path.join(nan_logs, "lowerbound", "epoch_1.pth"), model)
+    with torch.no_grad():
+        model.heads.reg.bias.fill_(float("nan"))
+    planted = os.path.join(nan_logs, "nan.pth")
+    save_pth(planted, model, None, 0)
+    try:
+        _cli(train_codet.main, [*train, "--logpath", os.path.join(nan_logs, "planted"), "--resume", planted])
+        raise AssertionError("training from a checkpoint with a NaN was not stopped")
+    except SystemExit as e:
+        if not str(e).startswith("--debug_nans: step 1:"):
+            raise AssertionError(f"the planted NaN stopped the run with {e}") from None
+        stopped = str(e)
+    print(f"debug_nans: one epoch finished; the planted NaN stopped the run: {stopped[:120]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    vis_logs = os.path.join(logs, "vis_run")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        try:
+            _cli(test_codet.main, [*evaluate[:-2], "--logpath", vis_logs, "--visualization", "1"])
+            raise AssertionError("--visualization 1 ran without matplotlib")
+        except SystemExit as e:
+            if "matplotlib" not in str(e):
+                raise AssertionError(f"--visualization 1 exited without naming matplotlib: {e}") from None
+            print(f"visualization: matplotlib absent; --visualization 1 exits: {e}")
+        return
+    _cli(test_codet.main, [*evaluate[:-2], "--logpath", vis_logs, "--visualization", "1"])
+    pngs = os.listdir(os.path.join(vis_logs, "vis"))
+    if not any(p.startswith("edge_w_") for p in pngs) or len(pngs) < 2:
+        raise AssertionError(f"--visualization 1 wrote {pngs}")
+    print(f"visualization: {len(pngs)} pngs")
+
+
+def _sigmoid_ties(raw, num_anchors, top_k):
+    """(F,) bool: frames where two distinct logit differences among the
+    top_k * num_anchors + 1 largest (every value the two-level selection can
+    rank) give the same float32 sigmoid: there the packed NMS may choose or
+    order candidates otherwise than the score path
+    (``ops/nms.py::rotated_nms_decode_packed``)."""
+    import torch
+
+    r = raw.float()
+    diff = (r[..., num_anchors:2 * num_anchors] - r[..., :num_anchors]).reshape(raw.shape[0], -1)
+    top = torch.sort(diff, dim=-1, descending=True).values[:, :top_k * num_anchors + 1]
+    sig = torch.sigmoid(top)
+    return ((top[:, 1:] != top[:, :-1]) & (sig[:, 1:] == sig[:, :-1])).any(dim=-1)
+
+
+def _phase11(cfg, model, main_path):
+    """The NMS entry points besides the main path's (see the module
+    docstring). Returns the launches of the packed ``predict``."""
+    import numpy as np
+    import torch
+
+    from disconet_tpu_torch import predict
+    from disconet_tpu_torch.models.base import agents_to_batch
+    from disconet_tpu_torch.ops.nms import (
+        packed_scores_and_deltas, rotated_nms, rotated_nms_decode, rotated_nms_decode_packed,
+    )
+    from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix, rotated_iou_matrix_plain
+    from disconet_tpu_torch.ops.voxelize import voxelize_occupy
+
+    pts_d, trans_d, amask_d, anchors = main_path
+    packed_cfg = dataclasses.replace(cfg, packed_nms=True)
+    K = cfg.nms_top_k
+    kw = dict(iou_threshold=cfg.nms_iou_threshold, score_threshold=cfg.score_threshold, top_k=K)
+    voxelize_occupy.launches = 0
+    rotated_iou_matrix.launches = 0
+    boxes, scores, keep = predict(model, pts_d, trans_d, amask_d, anchors, packed_cfg)
+    torch.cuda.synchronize()
+    launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched by the packed_nms predict: {launches}")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores).all()):
+        raise AssertionError("packed_nms predict: non-finite outputs")
+    with torch.inference_mode():
+        bev = voxelize_occupy(pts_d, cfg.voxel_size, cfg.area_extents)
+        raw = agents_to_batch(model(bev, trans_d, amask_d, store_bf16=True)["head_raw"])
+        s, d = packed_scores_and_deltas(raw, cfg.num_anchors, cfg.box_code_size)
+        ref = rotated_nms_decode(d, s, anchors, **kw)
+        got = rotated_nms_decode_packed(raw, anchors, cfg.num_anchors, **kw)
+    ties = _sigmoid_ties(raw, cfg.num_anchors, K)
+    same = [torch.equal(g[~ties], r[~ties]) for g, r in zip(got, ref)]
+    if not all(same):
+        raise AssertionError(f"packed NMS != score path outside the sigmoid ties (boxes, scores, keep: {same})")
+    tie_slots = int((got[2][ties] != ref[2][ties]).sum())
+    print(f"packed nms: on the same head outputs, boxes, scores and keep equal to the score path in "
+          f"{int((~ties).sum())} of {len(ties)} frames; {int(ties.sum())} frames with sigmoid ties, "
+          f"{tie_slots} keep slots differing there; {int(keep.sum())} kept by predict, launches {launches}")
+    windows = {"packed_nms": [], "default": []}
+    for w in range(3):  # in turns, 3 windows of 20 calls each
+        for name, c in (("packed_nms", packed_cfg), ("default", cfg)):
+            windows[name].append(_time_ms(lambda: predict(model, pts_d, trans_d, amask_d, anchors, c), iters=20,
+                                          warmup=2 if w == 0 else 0))
+    med = {k: sorted(v)[1] for k, v in windows.items()}
+    print(f"packed nms predict: {med['packed_nms']:.3f} ms per batch of {BATCH}, "
+          f"{BATCH * 1e3 / med['packed_nms']:.2f} scenes/s; default {med['default']:.3f} ms, "
+          f"{BATCH * 1e3 / med['default']:.2f} scenes/s (median of 3 windows of 20, in turns: "
+          + "; ".join(f"{k} " + ", ".join(f"{BATCH * 1e3 / x:.2f}" for x in v) for k, v in windows.items()) + ")")
+
+    # caller boxes and the flat layout: the kernel against the plain IoU
+    rng = np.random.default_rng(7)
+    cb = torch.from_numpy(_random_boxes(rng, BATCH * AGENTS, 1024)).to(pts_d.device)
+    cs = torch.from_numpy(rng.uniform(0, 1, (BATCH * AGENTS, 1024)).astype(np.float32)).to(pts_d.device)
+    flat = (d.reshape(d.shape[0], -1, cfg.box_code_size), s.reshape(s.shape[0], -1), anchors.reshape(-1, 5))
+    for name, fn in (("rotated_nms (caller boxes)", lambda iou: rotated_nms(cb, cs, 0.1, 0.2, K, iou=iou)),
+                     ("rotated_nms_decode (flat)", lambda iou: rotated_nms_decode(*flat, **kw, iou=iou))):
+        with torch.inference_mode():
+            k_out, p_out = fn(rotated_iou_matrix), fn(rotated_iou_matrix_plain)
+        if not (torch.equal(k_out[2], p_out[2]) and torch.equal(k_out[0], p_out[0])):
+            raise AssertionError(f"{name}: the kernel's keep or boxes differ from the plain IoU's")
+        print(f"{name}: keep and boxes equal with the kernel and the plain IoU, {int(k_out[2].sum())} kept of "
+              f"{int((k_out[1] > -1).sum())} candidates")
+    return launches
 
 
 OTHER_COMS = ("sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com")

@@ -86,6 +86,16 @@ class Config:
     # reads. The fp32 cls/reg views are always sliced from the fp32 result.
     head_raw_dtype: str = "bfloat16"
 
+    # Inference dtype of DiscoNet's fusion-layer map, which the all-pairs
+    # warp samples: "bfloat16" stores it in bf16 under ``store_bf16`` (the
+    # predict paths), "float32" keeps it fp32. Training is fp32 either way.
+    warp_dtype: str = "bfloat16"
+
+    # Binary-class NMS of the predict paths straight from the packed head
+    # tensor, choosing candidates on logit differences
+    # (ops/nms.py rotated_nms_decode_packed); False scores every anchor first.
+    packed_nms: bool = False
+
     # Segmentation: BEV semantic classes, the backbone of the seg models
     # ("unet": the reference seg zoo's UNet topology, models/unet.py;
     # "stpn": the detection pyramid with a 1x1 SegHead) and the UNet widths.

@@ -1,4 +1,4 @@
-"""Host evaluation of the port: mAP."""
+"""Host evaluation of the port: mAP and CLEAR-MOT."""
 
 from disconet_tpu_torch.evaluation.mean_ap import (  # noqa: F401
     average_precision,
@@ -6,3 +6,4 @@ from disconet_tpu_torch.evaluation.mean_ap import (  # noqa: F401
     eval_map_multiclass,
     tpfp_default,
 )
+from disconet_tpu_torch.evaluation.mot import clear_mot  # noqa: F401

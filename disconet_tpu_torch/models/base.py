@@ -17,6 +17,7 @@ With ``store_bf16`` (inference, see ``ConvBNRelu.forward``) the eval-mode
 bf16 compute mode stores its maps in bf16. DiscoNet's fusion-layer map is
 stored so too, so its warp samples bf16 maps (accumulating in fp32), as the
 JAX package warps at inference on the TPU; its scorer casts to bf16 anyway.
+``config.warp_dtype`` "float32" keeps that map fp32 (the JAX ``warp_dtype``).
 Every other fusion model keeps the fusion-layer map fp32
 (``fusion_store_bf16`` False): V2VNet's hidden state, When2com's unwarped
 values and the naive sums, means and maxima read it as the JAX package's do.
@@ -157,6 +158,18 @@ class IntermediateFusionModel(nn.Module):
         -> (B, A, h, w, C)."""
         raise NotImplementedError
 
+    def encode_and_warp(self, bev: torch.Tensor, trans: torch.Tensor, store_bf16: bool = False):
+        """The encoder's maps (B*A, C, h, w) per stage, the fusion layer's map
+        (B, A, h, w, C) and its all-pairs warp (B, Ar, As, h, w, C), or None
+        where ``fuse`` does not read it."""
+        B, A = bev.shape[:2]
+        k = self.layer
+        bf16_fusion = self.fusion_store_bf16 and self.config.warp_dtype == "bfloat16"
+        feats = self.stpn.encode(bev_to_batch(bev), store_bf16, None if bf16_fusion else k)
+        fk = batch_to_agents(feats[k].permute(0, 2, 3, 1), B, A)
+        warped = warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
+        return feats, fk, warped
+
     def forward(
         self, bev: torch.Tensor, trans: torch.Tensor, agent_mask: torch.Tensor, store_bf16: bool = False
     ) -> Dict[str, torch.Tensor]:
@@ -164,9 +177,7 @@ class IntermediateFusionModel(nn.Module):
         ``store_bf16`` as ``ConvBNRelu.forward``."""
         B, A = bev.shape[:2]
         k = self.layer
-        feats = self.stpn.encode(bev_to_batch(bev), store_bf16, None if self.fusion_store_bf16 else k)
-        fk = batch_to_agents(feats[k].permute(0, 2, 3, 1), B, A)  # (B, A, h, w, C)
-        warped = warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
+        feats, fk, warped = self.encode_and_warp(bev, trans, store_bf16)
         fused = self.fuse(fk, warped, agent_mask.to(torch.bool), trans)
         feats = list(feats)
         feats[k] = agents_to_batch(fused).permute(0, 3, 1, 2).contiguous(

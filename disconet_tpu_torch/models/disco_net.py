@@ -52,11 +52,22 @@ class DiscoNet(IntermediateFusionModel):
             self.layer_channels, bf16=config.compute_dtype == "bfloat16"
         )
 
-    def fuse(self, feats_k, warped, agent_mask, trans):
+    def _weights(self, feats_k, warped, agent_mask):
         B, Ar, As, h, w, C = warped.shape
         pair_mask = (agent_mask[:, :, None] & agent_mask[:, None, :]).reshape(B * Ar * As)
         scores = self.weight_net(
             feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C), pair_mask
         ).reshape(B, Ar, As, h, w)
-        weights = sender_softmax(scores, agent_mask)
-        return (weights[..., None] * warped).sum(dim=2)
+        return sender_softmax(scores, agent_mask)
+
+    def fuse(self, feats_k, warped, agent_mask, trans):
+        return (self._weights(feats_k, warped, agent_mask)[..., None] * warped).sum(dim=2)
+
+    def edge_weights(self, bev, trans, agent_mask, store_bf16: bool = False) -> torch.Tensor:
+        """The DiscoGraph's per-pixel edge weights W_j->i, (B, Ar, As, h, w)
+        float32 (the JAX model's sown ``edge_weights``): the encoder, the warp
+        and the scorer of the forward, without the decoder and the heads. The
+        caller sets the mode and the grad mode; ``forward`` never computes
+        more for them."""
+        _, fk, warped = self.encode_and_warp(bev, trans, store_bf16)
+        return self._weights(fk, warped, agent_mask.to(torch.bool))

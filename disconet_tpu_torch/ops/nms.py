@@ -1,4 +1,7 @@
-"""Rotated NMS over encoded predictions, batched over frames.
+"""Rotated NMS, batched over frames: on caller boxes (:func:`rotated_nms`),
+over encoded predictions in three layouts (:func:`rotated_nms_decode`),
+straight from the packed head tensor (:func:`rotated_nms_decode_packed`) and
+per class (:func:`multiclass_nms_decode`).
 
 The JAX package maps one frame's NMS over frames with ``vmap``; here the frame
 axis is a batch dimension: one rotated-IoU launch covers every frame, and the
@@ -21,6 +24,16 @@ from disconet_tpu_torch.ops.boxes import decode_boxes
 from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
 
 IouFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def foreground_scores(cls_logits: torch.Tensor) -> torch.Tensor:
+    """Per-anchor foreground probability of raw class logits (..., C), float32:
+    ``sigmoid(l1 - l0)`` for two classes (the 2-way softmax's class 1), else
+    ``1 - p(background)`` with class 0 the background."""
+    cls_logits = cls_logits.float()
+    if cls_logits.shape[-1] == 2:
+        return torch.sigmoid(cls_logits[..., 1] - cls_logits[..., 0])
+    return 1.0 - torch.softmax(cls_logits, dim=-1)[..., 0]
 
 
 def packed_scores_and_deltas(raw: torch.Tensor, num_anchors: int, box_code_size: int = 6):
@@ -79,6 +92,19 @@ def _select_candidates_spatial(scores: torch.Tensor, score_threshold: float, top
     )
 
 
+def _select_candidates_flat(scores: torch.Tensor, score_threshold: float, top_k: int):
+    """Top-k of (F, N) scores after thresholding (below it: -1), padded to
+    ``top_k``: (scores (F, top_k), indices (F, k)) with k = min(top_k, N)."""
+    scores = torch.where(scores >= score_threshold, scores, torch.full_like(scores, -1.0))
+    vals, idx = _top_k_stable(scores, min(top_k, scores.shape[-1]))
+    return _pad_to(vals, top_k, -1.0), idx
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (F, N, c), idx (F, k) -> (F, k, c)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
 def _mask_invalid_boxes(top_boxes: torch.Tensor, top_scores: torch.Tensor) -> torch.Tensor:
     """Zero the box rows of dead slots (below threshold or padding)."""
     return torch.where((top_scores > -1.0)[..., None], top_boxes, torch.zeros_like(top_boxes))
@@ -124,6 +150,34 @@ def _suppress(
     return keep
 
 
+def rotated_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    iou_threshold: float,
+    score_threshold: float = 0.0,
+    top_k: int = 256,
+    iou: IouFn = rotated_iou_matrix,
+):
+    """Greedy rotated NMS of caller boxes, per frame.
+
+    Args:
+        boxes: (F, N, 5) rotated boxes (cx, cy, w, l, theta).
+        scores: (F, N), strictly above -1 (the dead-slot sentinel).
+        iou_threshold: suppress boxes with IoU > threshold against a kept box.
+        score_threshold: boxes below it are dropped before the top-k.
+        top_k: candidates per frame, and the size of the outputs.
+        iou: as :func:`rotated_nms_decode`.
+
+    Returns:
+        boxes (F, top_k, 5), scores (F, top_k), keep (F, top_k) bool, as
+        :func:`rotated_nms_decode`.
+    """
+    top_scores, idx = _select_candidates_flat(scores, score_threshold, top_k)
+    top_boxes = _pad_to(_gather_rows(boxes, idx), top_k, 0.0)
+    top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
+    return top_boxes, top_scores, _suppress(top_boxes, top_scores, iou_threshold, iou)
+
+
 def rotated_nms_decode(
     deltas: torch.Tensor,
     scores: torch.Tensor,
@@ -133,13 +187,21 @@ def rotated_nms_decode(
     top_k: int = 256,
     iou: IouFn = rotated_iou_matrix,
 ):
-    """Rotated NMS over packed encoded predictions: top-k first, decode only winners.
+    """Rotated NMS over encoded predictions: top-k first, decode only winners.
+
+    Three layouts, told apart by the ranks of ``scores`` and ``deltas``:
+
+    * packed spatial: deltas (F, H, W, A*code), the head's channel layout,
+      scores (F, H, W, A), anchors (H, W, A, 5); the per-anchor split
+      happens on the winners only;
+    * spatial: deltas (F, H, W, A, code), scores and anchors as above;
+    * flat: deltas (F, N, code), scores (F, N), anchors (N, 5).
+
+    The spatial layouts select by a two-level top-k (cells, then the winning
+    cells' anchors) and threshold the winners; the flat one thresholds and
+    takes one top-k. Scores lie strictly above -1 (the dead-slot sentinel).
 
     Args:
-        deltas: (F, H, W, A*code) packed deltas, the head's channel layout.
-        scores: (F, H, W, A) foreground scores, strictly above -1 (the
-            dead-slot sentinel).
-        anchors: (H, W, A, 5).
         iou_threshold: suppress boxes with IoU > threshold against a kept box.
         score_threshold: candidates below it become dead slots.
         top_k: candidates per frame, and the size of the outputs.
@@ -152,19 +214,67 @@ def rotated_nms_decode(
 
     Deltas are decoded in float32 whatever their storage dtype.
     """
-    Fr, H, W, A = scores.shape
-    top_scores, (h, w, a) = _select_candidates_spatial(scores, score_threshold, top_k)
-    code = deltas.shape[-1] // A
-    cell = h * W + w  # (F, top_k)
-    rows = torch.gather(
-        deltas.reshape(Fr, H * W, A * code), 1, cell[..., None].expand(Fr, top_k, A * code)
-    ).reshape(Fr, top_k, A, code)
-    d = torch.gather(rows, 2, a[..., None, None].expand(Fr, top_k, 1, code))[:, :, 0]
-    anc = anchors.reshape(H * W * A, 5)[cell * A + a]  # (F, top_k, 5)
-    top_boxes = decode_boxes(d.float(), anc)
+    if scores.dim() == 2:
+        top_scores, idx = _select_candidates_flat(scores, score_threshold, top_k)
+        top_boxes = decode_boxes(_gather_rows(deltas, idx).float(), anchors[idx])
+        top_boxes = _pad_to(top_boxes, top_k, 0.0)
+    else:
+        Fr, H, W, A = scores.shape
+        top_scores, (h, w, a) = _select_candidates_spatial(scores, score_threshold, top_k)
+        cell = h * W + w  # (F, top_k)
+        code = deltas.shape[-1] // A if deltas.dim() == 4 else deltas.shape[-1]
+        # the winners' cells, then their anchors: the (F, H, W, A, code) split
+        # of the packed layout is never built
+        rows = _gather_rows(deltas.reshape(Fr, H * W, A * code), cell).reshape(Fr, top_k, A, code)
+        d = torch.gather(rows, 2, a[..., None, None].expand(Fr, top_k, 1, code))[:, :, 0]
+        top_boxes = decode_boxes(d.float(), anchors.reshape(H * W * A, 5)[cell * A + a])
     top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
-    keep = _suppress(top_boxes, top_scores, iou_threshold, iou)
-    return top_boxes, top_scores, keep
+    return top_boxes, top_scores, _suppress(top_boxes, top_scores, iou_threshold, iou)
+
+
+def rotated_nms_decode_packed(
+    raw: torch.Tensor,
+    anchors: torch.Tensor,
+    num_anchors: int,
+    iou_threshold: float,
+    score_threshold: float = 0.0,
+    top_k: int = 256,
+    iou: IouFn = rotated_iou_matrix,
+):
+    """Rotated NMS straight from the packed class-major head tensor
+    (F, H, W, 2*NA + NA*code) (see :func:`packed_scores_and_deltas`).
+
+    Sigmoid is monotonic, so candidates are chosen on the logit differences
+    ``l1 - l0``: the top-k cells by their largest difference, then the top-k
+    of the winning cells' differences; only the ``top_k`` winners are
+    sigmoided and thresholded. The result is :func:`rotated_nms_decode`'s on
+    ``packed_scores_and_deltas(raw)`` except where float32 sigmoid saturates
+    (differences above ~17 give exactly 1.0): the score path breaks those
+    ties by index, this path still orders them by logit, so the selected sets
+    can differ among anchors scoring 1.0. Outputs as :func:`rotated_nms_decode`.
+    """
+    Fr, H, W, C = raw.shape
+    NA = num_anchors
+    code = (C - 2 * NA) // NA
+    r = raw.float()
+    k = min(top_k, H * W)
+    _, cells = _top_k_stable((r[..., NA:2 * NA] - r[..., :NA]).amax(-1).reshape(Fr, H * W), k)
+    rows = _gather_rows(raw.reshape(Fr, H * W, C), cells)  # (F, k, C) winner rows
+    diff = rows[..., NA:2 * NA].float() - rows[..., :NA].float()
+    kk = min(top_k, k * NA)
+    vals, pos = _top_k_stable(diff.reshape(Fr, k * NA), kk)
+    sel = torch.div(pos, NA, rounding_mode="floor")
+    a = pos % NA
+    cell = torch.gather(cells, 1, sel)
+    scores = torch.sigmoid(vals)
+    scores = torch.where(scores >= score_threshold, scores, torch.full_like(scores, -1.0))
+    d = _gather_rows(rows[..., 2 * NA:], sel).reshape(Fr, kk, NA, code)
+    d = torch.gather(d, 2, a[..., None, None].expand(Fr, kk, 1, code))[:, :, 0]
+    top_boxes = decode_boxes(d.float(), anchors.reshape(H * W * NA, 5)[cell * NA + a])
+    top_boxes = _pad_to(top_boxes, top_k, 0.0)
+    top_scores = _pad_to(scores, top_k, -1.0)
+    top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
+    return top_boxes, top_scores, _suppress(top_boxes, top_scores, iou_threshold, iou)
 
 
 def multiclass_nms_decode(
@@ -193,12 +303,11 @@ def multiclass_nms_decode(
         boxes (F, (C-1)*top_k, 5), scores, keep and labels (int32 class ids
         1..C-1), class-major within a frame.
     """
-    Fr, H, W, A, code = deltas.shape
+    Fr = deltas.shape[0]
     C = cls_logits.shape[-1]
     probs = torch.softmax(cls_logits.float(), dim=-1)
-    packed = deltas.float().reshape(Fr, H, W, A * code)
     per_class = [
-        rotated_nms_decode(packed, probs[..., c], anchors, iou_threshold, score_threshold, top_k, iou)
+        rotated_nms_decode(deltas, probs[..., c], anchors, iou_threshold, score_threshold, top_k, iou)
         for c in range(1, C)
     ]
     boxes, scores, keep = (torch.stack(t, dim=1).reshape((Fr, (C - 1) * top_k) + t[0].shape[2:])

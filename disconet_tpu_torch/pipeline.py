@@ -17,7 +17,9 @@ from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.data.targets import assign_targets, sparse_targets
 from disconet_tpu_torch.models.base import agents_to_batch
 from disconet_tpu_torch.ops.boxes import make_anchors
-from disconet_tpu_torch.ops.nms import IouFn, packed_scores_and_deltas, rotated_nms_decode
+from disconet_tpu_torch.ops.nms import (
+    IouFn, packed_scores_and_deltas, rotated_nms_decode, rotated_nms_decode_packed,
+)
 from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
 from disconet_tpu_torch.ops.voxelize import voxelize_occupy
 
@@ -73,20 +75,18 @@ def detect(model: nn.Module, bev, trans, agent_mask, anchors, cfg: Config, iou: 
     -> boxes (B, A, K, 5), scores (B, A, K), keep (B, A, K), as
     :func:`predict`. The caller sets the grad mode. The model stores its
     ConvBNRelu outputs in bf16 in the bf16 mode (``store_bf16``): the NMS
-    reads no value that the rounding changes."""
+    reads no value that the rounding changes. ``cfg.packed_nms`` chooses the
+    candidates from the head's logits (:func:`ops.nms.rotated_nms_decode_packed`)."""
     B, A = bev.shape[:2]
     out = model(bev, trans, agent_mask, store_bf16=True)
     raw = agents_to_batch(out["head_raw"])
-    scores, deltas = packed_scores_and_deltas(raw, cfg.num_anchors, cfg.box_code_size)
-    boxes, top_scores, keep = rotated_nms_decode(
-        deltas,
-        scores,
-        anchors,
-        iou_threshold=cfg.nms_iou_threshold,
-        score_threshold=cfg.score_threshold,
-        top_k=cfg.nms_top_k,
-        iou=iou,
-    )
+    nms = dict(iou_threshold=cfg.nms_iou_threshold, score_threshold=cfg.score_threshold,
+               top_k=cfg.nms_top_k, iou=iou)
+    if cfg.packed_nms:
+        boxes, top_scores, keep = rotated_nms_decode_packed(raw, anchors, cfg.num_anchors, **nms)
+    else:
+        scores, deltas = packed_scores_and_deltas(raw, cfg.num_anchors, cfg.box_code_size)
+        boxes, top_scores, keep = rotated_nms_decode(deltas, scores, anchors, **nms)
     K = cfg.nms_top_k
     return boxes.reshape(B, A, K, 5), top_scores.reshape(B, A, K), keep.reshape(B, A, K)
 

@@ -1,0 +1,358 @@
+"""Detection- and tracking-quality protocol of the port, the counterpart of
+the JAX package's ``tools/bench_quality.py``.
+
+    python -m disconet_tpu_torch.tools.bench_quality --root build/quality \
+        --occlusion 1 --configs disco lowerbound --seeds 0 --track_evals \
+        --out results/port_occluded_matrix.json
+    python -m disconet_tpu_torch.tools.bench_quality --out results/port_occluded_matrix.json --summarize
+
+Each (config, seed) cell trains through the port's ``train_codet`` (``--nepoch``
+epochs at ``--batch``, the final epoch's checkpoint only: ``--ckpt_every
+nepoch --ckpt_keep 1``) and evaluates that checkpoint on the val split
+through ``test_codet``. ``--track_evals`` adds, for the trained configs of
+``TRACK_EVALS``, ``test_codet --tracking --split val`` -> ``sort`` ->
+``eval_mot`` in the config's own tracking log path. The data are the JAX
+protocol's: ``create_data_det --occlusion 1`` at ``--grid 64``, 24 train and
+24 val scenes of 8 frames, the files the JAX generator writes.
+
+Results accumulate in ``--out`` under the JAX matrix's keys
+(``disco/seed0``, ``disco+track/seed0``); a key already there is skipped, so
+the cells can run over several calls. Every cell stamps the card
+(``nvidia-smi`` name and power limit), the commit, a digest of the port's
+sources and its wall seconds. ``--summarize`` prints the port's cells beside
+the JAX matrix's (``results/occluded_matrix.json``).
+
+The CLIs run as ``python -m`` processes, or in this process with
+``--inprocess`` (the tests). ``--device`` passes through; the card by default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import hashlib
+import importlib
+import io
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+JAX_MATRIX = os.path.join(REPO, "results", "occluded_matrix.json")
+
+# config -> train/test flags, as the JAX protocol's; the intermediate-fusion
+# cells pin the fusion layer
+CONFIGS = {
+    "lowerbound": ["--bound", "lowerbound"],
+    "upperbound": ["--bound", "upperbound"],
+    "when2com": ["--com", "when2com", "--layer", "3"],
+    "v2v": ["--com", "v2v", "--layer", "3"],
+    "disco": ["--com", "disco", "--layer", "3"],
+    "disco_kd": ["--com", "disco", "--kd_flag", "1", "--layer", "3"],
+    "disco_norsu": ["--com", "disco", "--rsu", "0", "--layer", "3"],
+    "mean": ["--com", "mean", "--layer", "3"],
+    "max": ["--com", "max", "--layer", "3"],
+    "disco_l2": ["--com", "disco", "--layer", "2"],
+    "disco_kd_l2": ["--com", "disco", "--kd_flag", "1", "--layer", "2"],
+    "v2v_l2": ["--com", "v2v", "--layer", "2"],
+    "when2com_l2": ["--com", "when2com", "--layer", "2"],
+    "who2com_l2": ["--com", "who2com", "--layer", "2"],
+}
+# configs whose train log directory ({com}[_kd]) another config shares: they
+# train under a log path of their own
+MODE_DIR = {
+    "disco_norsu": "disco",
+    "disco_l2": "disco",
+    "disco_kd_l2": "disco_kd",
+    "v2v_l2": "v2v",
+    "when2com_l2": "when2com",
+    "who2com_l2": "who2com",
+}
+TRACK_EVALS = ("disco_kd", "disco", "lowerbound")
+
+AVG_RE = re.compile(r"average \|\s+([\d.]+) \|\s+([\d.]+) \|\s+(\d+) \|\s+(\d+)")
+MOT_AVG_RE = re.compile(r"avg \|\s+(-?[\d.]+) \|\s+([\d.]+)")
+EPOCH_LOSS_RE = re.compile(r"epoch \d+ done .*?(?<![\w])loss=(-?nan|-?inf|[\d.eE+-]+)")
+# a non-finite epoch loss in the JSON: large enough to flag the cell
+NONFINITE_LOSS = 1e30
+
+
+def card() -> str:
+    """The card as ``nvidia-smi --query-gpu=name,power.limit`` gives it."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def git_commit() -> str:
+    try:
+        sha = subprocess.run(["git", "rev-parse", "--short", "HEAD"], capture_output=True, text=True,
+                             cwd=REPO, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        sha = ""
+    return sha or "unknown"
+
+
+def source_digest() -> str:
+    """sha1 over the port's Python and CUDA sources, in path order: names
+    the code that ran a cell where no git checkout is at hand."""
+    h = hashlib.sha1()
+    pkg = os.path.join(REPO, "disconet_tpu_torch")
+    for d, _, files in sorted(os.walk(pkg)):
+        for f in sorted(files):
+            if f.endswith((".py", ".cu")):
+                path = os.path.join(d, f)
+                h.update(os.path.relpath(path, REPO).encode())
+                with open(path, "rb") as fh:
+                    h.update(fh.read())
+    return h.hexdigest()[:12]
+
+
+def run_cli(module: str, argv, log_file: str, inprocess: bool) -> str:
+    """Run ``disconet_tpu_torch.tools.<module>`` with ``argv``, appending the
+    command line and its output to ``log_file``; returns the output. A
+    failing run raises RuntimeError."""
+    name = f"disconet_tpu_torch.tools.{module}"
+    with open(log_file, "a") as f:
+        f.write(f"\n$ python -m {name} {' '.join(argv)}\n")
+    if inprocess:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                importlib.import_module(name).main(list(argv))
+            ok = True
+        except SystemExit as e:
+            ok = e.code in (None, 0)
+            buf.write(f"SystemExit: {e.code}\n")
+        out = buf.getvalue()
+    else:
+        r = subprocess.run([sys.executable, "-m", name, *argv], capture_output=True, text=True, cwd=REPO)
+        out, ok = r.stdout + r.stderr, r.returncode == 0
+    with open(log_file, "a") as f:
+        f.write(out)
+    if not ok:
+        raise RuntimeError(f"{name} failed (see {log_file})")
+    return out
+
+
+def epoch_loss_stats(log_file: str) -> dict:
+    """{final_epoch_loss, min_epoch_loss} of the last train run in the log."""
+    with open(log_file) as f:
+        text = f.read()
+    starts = [m.end() for m in re.finditer(r"^\$ .*train_codet.*$", text, re.M)]
+    text = text[starts[-1]:] if starts else text
+    losses = []
+    for m in EPOCH_LOSS_RE.finditer(text):
+        v = float(m.group(1))
+        losses.append(v if math.isfinite(v) else NONFINITE_LOSS)
+    return {"final_epoch_loss": losses[-1], "min_epoch_loss": min(losses)} if losses else {}
+
+
+def load_results(path: str) -> dict:
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return {}
+
+
+def save_results(results: dict, path: str) -> None:
+    """Write ``results`` atomically, so that a run cut mid-write leaves the
+    previous file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump(results, f, indent=1, sort_keys=True)
+    os.replace(path + ".tmp", path)
+
+
+def stamp(args, flags, seconds: dict) -> dict:
+    layer = int(flags[flags.index("--layer") + 1]) if "--layer" in flags else None
+    # "sha", "grid", "nepoch": the stamp of every results/ matrix cell
+    return {"card": args.card, "sha": args.commit, "source_sha1": args.source_sha1,
+            "device": args.device, "grid": args.grid, "nepoch": args.nepoch, "batch": args.batch,
+            "layer": layer, "ckpt": "final", **{k: round(v, 1) for k, v in seconds.items()}}
+
+
+def cell_dirs(args, name: str, seed: int):
+    """(log path of the cell, its train log directory)."""
+    logpath = os.path.join(args.root, "logs", f"seed{seed}")
+    if name in MODE_DIR:
+        logpath = os.path.join(logpath, name)
+    return logpath, os.path.join(logpath, MODE_DIR.get(name, name))
+
+
+def final_ckpt(args, name: str, seed: int) -> str:
+    return os.path.join(cell_dirs(args, name, seed)[1], f"epoch_{args.nepoch}.pth")
+
+
+def test_flags(name: str):
+    """The config's flags for ``test_codet``: ``--kd_flag`` and its value go."""
+    flags = list(CONFIGS[name])
+    if "--kd_flag" in flags:
+        i = flags.index("--kd_flag")
+        del flags[i:i + 2]
+    return flags
+
+
+def evaluate(args, name: str, ckpt: str, log_file: str, extra=()) -> dict:
+    out = run_cli("det.test_codet", ["--data", os.path.join(args.root, "val"), *test_flags(name),
+                                      "--resume", ckpt, "--grid", str(args.grid), "--batch", "4",
+                                      "--device", args.device, *extra], log_file, args.inprocess)
+    m = AVG_RE.search(out)
+    if not m:
+        raise RuntimeError(f"no mAP table in the test output (see {log_file})")
+    return {"mAP@0.5": float(m.group(1)), "mAP@0.7": float(m.group(2)),
+            "n_gt": int(m.group(3)), "n_det": int(m.group(4))}
+
+
+def run_cell(args, name: str, seed: int, results: dict) -> None:
+    key = f"{name}/seed{seed}"
+    if key in results:
+        print(f"[skip] {key}", flush=True)
+        return
+    logpath, _ = cell_dirs(args, name, seed)
+    os.makedirs(logpath, exist_ok=True)
+    log_file = os.path.join(logpath, f"{name}.log")
+    flags = list(CONFIGS[name])
+    if "--kd_flag" in flags:  # the same seed's trained upperbound teaches
+        teacher = final_ckpt(args, "upperbound", seed)
+        if not os.path.exists(teacher):
+            raise RuntimeError(f"{key}: no teacher checkpoint {teacher}; run upperbound first")
+        flags += ["--resume_teacher", teacher]
+    t0 = time.perf_counter()
+    ckpt = final_ckpt(args, name, seed)
+    seconds = {}
+    if not os.path.exists(ckpt):
+        run_cli("det.train_codet", ["--data", os.path.join(args.root, "train"), *flags,
+                                    "--batch", str(args.batch), "--nepoch", str(args.nepoch),
+                                    "--grid", str(args.grid), "--seed", str(seed), "--logpath", logpath,
+                                    "--ckpt_every", str(args.nepoch), "--ckpt_keep", "1",
+                                    "--device", args.device], log_file, args.inprocess)
+        seconds["train_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cell = evaluate(args, name, ckpt, log_file)
+    seconds["eval_s"] = time.perf_counter() - t1
+    seconds["wall_s"] = time.perf_counter() - t0
+    cell.update(epoch_loss_stats(log_file))
+    cell["prov"] = stamp(args, flags, seconds)
+    results[key] = cell
+    save_results(results, args.out)
+    print(f"[done] {key}: {cell}", flush=True)
+
+
+def run_track(args, base: str, seed: int, results: dict) -> None:
+    """``test_codet --tracking`` -> ``sort`` -> ``eval_mot`` on a trained
+    cell's checkpoint, in a tracking log path of the config's own (``disco``
+    and ``disco_kd`` dump under the same mode directory)."""
+    key = f"{base}+track/seed{seed}"
+    if key in results:
+        print(f"[skip] {key}", flush=True)
+        return
+    ckpt = final_ckpt(args, base, seed)
+    if not os.path.exists(ckpt):
+        print(f"[miss] {key}: no {ckpt}", flush=True)
+        return
+    logpath, _ = cell_dirs(args, base, seed)
+    log_file = os.path.join(logpath, f"{base}+track.log")
+    track_logpath = os.path.join(logpath, "track", base)
+    mode = "disco" if base.startswith("disco") else base
+    t0 = time.perf_counter()
+    evaluate(args, base, ckpt, log_file, ["--tracking", "--split", "val", "--logpath", track_logpath])
+    dumps = os.path.join(track_logpath, mode, "with_rsu", "val", "det_dumps")
+    tracks = os.path.join(os.path.dirname(dumps), "tracks")
+    run_cli("track.sort", ["--det_logs_path", dumps, "--out", tracks], log_file, args.inprocess)
+    out = run_cli("track.eval_mot", ["--data", os.path.join(args.root, "val"), "--tracks", tracks,
+                                     "--grid", str(args.grid)], log_file, args.inprocess)
+    m = MOT_AVG_RE.search(out)
+    if not m:
+        raise RuntimeError(f"no CLEAR-MOT avg row for {key} (see {log_file})")
+    results[key] = {"MOTA": float(m.group(1)), "MOTP": float(m.group(2)),
+                    "prov": stamp(args, CONFIGS[base], {"wall_s": time.perf_counter() - t0})}
+    save_results(results, args.out)
+    print(f"[done] {key}: {results[key]}", flush=True)
+
+
+def generate(args) -> None:
+    """The protocol's splits, skipped where they already exist."""
+    for split, scenes in (("train", args.train_scenes), ("val", args.val_scenes)):
+        out = os.path.join(args.root, split)
+        if os.path.isdir(out) and os.listdir(out):
+            continue
+        os.makedirs(args.root, exist_ok=True)
+        run_cli("det.create_data_det", ["--data", args.root, "--split", split, "--scenes", str(scenes),
+                                        "--frames", str(args.frames), "--grid", str(args.grid),
+                                        "--occlusion", str(args.occlusion)],
+                os.path.join(args.root, "gen.log"), args.inprocess)
+
+
+def summarize(results: dict, reference: dict) -> list:
+    """Print each config's port cells beside the JAX matrix's cells of the
+    same key, with the JAX seeds' range; returns the rows. A port value
+    outside the range by more than the range's width is flagged."""
+    rows = []
+    names = sorted({k.split("/")[0] for k in results if "/seed" in k})
+    print(f"\n{'config':<18} {'metric':<8} {'port (seeds)':<30} {'JAX (seeds)':<30} {'JAX range':<17} verdict")
+    for name in names:
+        metrics = ("MOTA", "MOTP") if name.endswith("+track") else ("mAP@0.5", "mAP@0.7")
+        for metric in metrics:
+            port = {k.split("/seed")[1]: v[metric] for k, v in results.items()
+                    if k.split("/")[0] == name and metric in v}
+            ref = [v[metric] for k, v in reference.items() if k.split("/")[0] == name and metric in v]
+            verdict, lo, hi = "no JAX cells", None, None
+            if ref:
+                lo, hi = min(ref), max(ref)
+                off = max(max(lo - x, x - hi, 0.0) for x in port.values())
+                width = hi - lo
+                verdict = ("inside the range" if off == 0 else
+                           f"outside by {off:.4f} (width {width:.4f})" + (" FAULT" if off > width else ""))
+            fmt = lambda vals: ", ".join(f"{v:.4f}" for v in vals)  # noqa: E731
+            print(f"{name:<18} {metric:<8} {fmt(port[s] for s in sorted(port)):<30} {fmt(sorted(ref)):<30} "
+                  + (f"[{lo:.4f}, {hi:.4f}]" if ref else "-").ljust(17) + f" {verdict}")
+            rows.append({"config": name, "metric": metric, "port": port, "jax": ref, "verdict": verdict})
+    return rows
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Detection-quality protocol of the PyTorch port")
+    p.add_argument("--root", type=str, default="build/quality", help="data and logs")
+    p.add_argument("--out", type=str, default="results/port_occluded_matrix.json")
+    p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    p.add_argument("--configs", type=str, nargs="+", default=["disco", "lowerbound"], choices=sorted(CONFIGS))
+    p.add_argument("--nepoch", type=int, default=100)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--grid", type=int, default=64)
+    p.add_argument("--train_scenes", type=int, default=24)
+    p.add_argument("--val_scenes", type=int, default=24)
+    p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--occlusion", type=int, default=1)
+    p.add_argument("--track_evals", action="store_true",
+                   help="after the cells, the tracking rows of the configs in TRACK_EVALS")
+    p.add_argument("--summarize", action="store_true", help="only print the table against the JAX matrix")
+    p.add_argument("--commit", type=str, default="", help="stamped on each cell (default: git HEAD)")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--inprocess", action="store_true", help="run the CLIs in this process")
+    args = p.parse_args(argv)
+
+    results = load_results(args.out)
+    if args.summarize:
+        return summarize(results, load_results(JAX_MATRIX))
+    args.card = card() if args.device == "cuda" else args.device
+    args.commit = args.commit or git_commit()
+    args.source_sha1 = source_digest()
+    print(f"card: {args.card}; commit {args.commit}, sources {args.source_sha1}", flush=True)
+    generate(args)
+    # upperbound first: a KD cell's teacher is its seed's upperbound
+    order = sorted(args.configs, key=lambda c: c != "upperbound")
+    for seed in args.seeds:
+        for name in order:
+            run_cell(args, name, seed, results)
+        if args.track_evals:
+            for base in (c for c in TRACK_EVALS if c in args.configs):
+                run_track(args, base, seed, results)
+    return summarize(results, load_results(JAX_MATRIX))
+
+
+if __name__ == "__main__":
+    main()

@@ -10,8 +10,13 @@ dumps per-agent, per-scene detection files under
 unless ``--device cpu``: batches are copied ahead on a worker thread and
 batch n+1's predict is dispatched before batch n's outputs are read. The
 rotated NMS runs the IoU kernel on every batch. Every ``--com`` evaluates,
-with ``--warp_flag`` and ``--gru_rounds`` as in training. ``--visualization
-1`` is not ported (ROADMAP.md Queue 1, item 12).
+with ``--warp_flag`` and ``--gru_rounds`` as in training. ``--warp_dtype
+float32`` keeps DiscoNet's fusion-layer map fp32 at inference (bf16 by
+default). ``--visualization 1`` (needs matplotlib) writes pngs under
+``{logpath}/vis``: each present agent of the first batch's scene-frames
+(``s{scene}_f{frame}_a{agent}.png``) and, for DiscoNet, the edge weights
+into each present receiver of the first scene-frame
+(``edge_w_s{scene}_f{frame}_a{agent}.png``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import time
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 from disconet_tpu_torch.config import Config, default_fusion_layer, tiny_config
 from disconet_tpu_torch.data.dataset import BatchIterator, V2XSimDet, pad_batch_to
@@ -30,13 +36,16 @@ from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.evaluation import eval_map, eval_map_multiclass
 from disconet_tpu_torch.checkpoint import restore_or_die
 from disconet_tpu_torch.ops.late_fusion import late_fusion
-from disconet_tpu_torch.tools.det.train_codet import build, refuse_unported
+from disconet_tpu_torch.tools.det.train_codet import build
 from disconet_tpu_torch.training import (
     batch_to_device,
+    get_bev,
     make_predict_step,
     pipeline_one_deep,
     prefetch_to_device,
 )
+from disconet_tpu_torch.training.det_module import get_bev_np
+from disconet_tpu_torch.utils import visualization as vis
 from disconet_tpu_torch.utils.pose_noise import perturb_trans
 
 
@@ -88,12 +97,12 @@ def main(argv=None):
     """Returns {"mAP@0.5", "mAP@0.7", "scenes_per_s"}: the last is the rate of
     the evaluation loop (loading, predict and the host's mAP bookkeeping)."""
     args = parse_args(argv)
-    refuse_unported([
-        (args.visualization, "--visualization 1", "item 12 (needs matplotlib)"),
-        (args.warp_dtype == "float32", "--warp_dtype float32", "item 12"),
-    ])
+    if args.visualization:
+        vis.require_matplotlib()
     dev = resolve_device(args.device)
     over = {"fusion_layer": args.layer}
+    if args.warp_dtype:
+        over["warp_dtype"] = args.warp_dtype
     if args.num_classes != 2:
         over["num_classes"] = args.num_classes
     if args.score_threshold is not None:
@@ -139,9 +148,21 @@ def main(argv=None):
 
     n_frames = 0
     t0 = time.perf_counter()
-    for (batch, _), pred in predictions:
+    vis_dir = os.path.join(args.logpath, "vis")
+    for i, ((batch, dev_batch), pred) in enumerate(predictions):
         (boxes, scores, keep), labels = pred[:3], (pred[3] if multiclass else None)
         B = int(np.sum(np.any(batch["agent_mask"], axis=1)))
+        if args.visualization and i == 0:
+            os.makedirs(vis_dir, exist_ok=True)
+            if args.com == "disco":
+                _render_edge_weights(vis_dir, model, cfg, batch, dev_batch)
+            bev = get_bev_np(batch, "bev", cfg)
+            for b in range(B):
+                scene, frame = (int(x) for x in batch["scene_frame"][b])
+                for a in np.flatnonzero(batch["agent_mask"][b]):
+                    k = keep[b, a]
+                    vis.save(vis.render_bev(cfg, bev[b, a], batch["gt_boxes"][b][a], boxes[b, a][k], scores[b, a][k]),
+                             os.path.join(vis_dir, f"s{scene}_f{frame}_a{a}.png"))
         for b in range(B):
             scene, frame = (int(x) for x in batch["scene_frame"][b])
             if args.apply_late_fusion:
@@ -220,7 +241,22 @@ def main(argv=None):
             with open(os.path.join(det_dir, f"det_agent{a}_scene{scene}.txt"), "w") as f:
                 f.write("\n".join(rows) + "\n")
         print(f"tracking dumps: {len(track_rows)} files under {det_dir}")
+    if args.visualization:
+        print(f"visualization: pngs under {vis_dir}")
     return overall
+
+
+def _render_edge_weights(vis_dir, model, cfg, batch, dev_batch) -> None:
+    """DiscoNet's edge weights into each present receiver of the batch's
+    first scene-frame, one png a receiver."""
+    with torch.inference_mode():
+        w = model.edge_weights(get_bev(dev_batch, "bev", cfg), dev_batch["trans"], dev_batch["agent_mask"],
+                               store_bf16=True)[0].cpu().numpy()  # (Ar, As, h, w)
+    scene, frame = (int(x) for x in batch["scene_frame"][0])
+    mask = batch["agent_mask"][0].astype(bool)
+    for recv in np.flatnonzero(mask):
+        vis.save(vis.render_edge_weights(w[recv], mask, int(recv)),
+                 os.path.join(vis_dir, f"edge_w_s{scene}_f{frame}_a{recv}.png"))
 
 
 if __name__ == "__main__":

@@ -14,9 +14,13 @@ directory holding one; the JAX package's orbax directories are not read.
 
 Every ``--com`` of the JAX CLI trains, with ``--warp_flag`` (when2com,
 who2com) and ``--gru_rounds`` (v2v); the log directory does not name them,
-as in the JAX CLI. Not ported; each exits naming its ROADMAP item:
-``--remat 1``, ``--steps_per_dispatch`` > 1, ``--mesh_agent``/
-``--mesh_spatial`` > 1, ``--visualization 1``, ``--debug_nans 1``.
+as in the JAX CLI. ``--visualization 1`` (needs matplotlib) renders, at each
+checkpointed epoch, the first present agent of the first batch with the
+model's detections (``{logdir}/vis/epoch_{N}_a{agent}.png``).
+``--debug_nans 1`` runs autograd's anomaly mode and stops at the first step
+whose loss or a gradient is not finite, naming the step and the value.
+Not ported; each exits naming its ROADMAP item: ``--remat 1``,
+``--steps_per_dispatch`` > 1, ``--mesh_agent``/``--mesh_spatial`` > 1.
 """
 
 from __future__ import annotations
@@ -35,12 +39,16 @@ from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.models.build import build_model
 from disconet_tpu_torch.training import (
     MetricLogger,
+    batch_to_device,
     create_train_state,
+    make_predict_step,
     make_train_step,
     precompute_teacher_feats,
     prefetch_to_device,
     teacher_feat_bytes,
 )
+from disconet_tpu_torch.training.det_module import get_bev_np
+from disconet_tpu_torch.utils import profiling, visualization as vis
 
 
 def parse_args(argv=None):
@@ -118,6 +126,8 @@ def refuse_unported(checks) -> None:
 
 def make_config(args) -> Config:
     over = dict(kd_weight=args.kd_weight, fusion_layer=args.layer)
+    if args.warp_dtype:
+        over["warp_dtype"] = args.warp_dtype
     if args.num_classes != 2:
         over["num_classes"] = args.num_classes
     if args.max_pos:
@@ -167,13 +177,18 @@ def _floats(metrics):
 
 def main(argv=None):
     args = parse_args(argv)
+    with profiling.nan_checks(args.debug_nans):
+        return _train(args)
+
+
+def _train(args):
     refuse_unported([
         (args.remat, "--remat 1", "item 10 (train_remat)"),
         (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1", "item 10 (make_train_step_multi)"),
         (args.mesh_agent > 1 or args.mesh_spatial > 1, "--mesh_agent/--mesh_spatial > 1", "item 16"),
-        (args.visualization, "--visualization 1", "item 12 (needs matplotlib)"),
-        (args.debug_nans, "--debug_nans 1", "item 12"),
     ])
+    if args.visualization:
+        vis.require_matplotlib()
     dev = resolve_device(args.device)
     cfg = make_config(args)
 
@@ -256,8 +271,11 @@ def main(argv=None):
                 activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
                 prof = profile(activities=activities)
                 prof.__enter__()
-            metrics = train_step(dev_batch)
             step += 1
+            if args.debug_nans:
+                metrics = profiling.checked_step(train_step, model, step, dev_batch)
+            else:
+                metrics = train_step(dev_batch)
             if prof is not None and step >= 2 + args.profile:
                 _end_profile(prof, dev, logdir)
                 prof, profile_done = None, True
@@ -281,6 +299,8 @@ def main(argv=None):
             if args.save_pth:
                 save_pth(os.path.join(logdir, f"epoch_{epoch}.pth"), model, optimizer, epoch,
                          loss=last.get("loss", 0.0))
+            if args.visualization:
+                _render_train_panel(cfg, model, dataset, args.batch, dev, logdir, epoch)
     if prof is not None:  # the run ended before 2 + --profile steps
         _end_profile(prof, dev, logdir)
     logger.close()
@@ -295,6 +315,24 @@ def _end_profile(prof, dev, logdir: str) -> None:
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
     print(f"profiler trace written to {out}")
+
+
+def _render_train_panel(cfg, model, dataset, batch_size: int, dev, logdir: str, epoch: int) -> None:
+    """The first present agent of the dataset's first batch with the model's
+    detections and the gt, as ``{logdir}/vis/epoch_{epoch}_a{agent}.png``."""
+    batch = next(iter(BatchIterator(dataset, batch_size, shuffle=False)))
+    boxes, scores, keep = (t.cpu().numpy() for t in make_predict_step(model, cfg)(batch_to_device(batch, dev))[:3])
+    mask = batch["agent_mask"][0].astype(bool)
+    if not mask.any():
+        return
+    a = int(np.flatnonzero(mask)[0])
+    k = keep[0, a]
+    out_dir = os.path.join(logdir, "vis")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"epoch_{epoch}_a{a}.png")
+    vis.save(vis.render_bev(cfg, get_bev_np(batch, "bev", cfg)[0, a], batch["gt_boxes"][0][a],
+                            boxes[0, a][k], scores[0, a][k]), path)
+    print(f"visualization: {path}")
 
 
 def _write_best(logdir: str, best: dict) -> None:

@@ -8,13 +8,15 @@ Prints the JAX package's table: one row per class (``n/a`` for a class in
 neither the predictions nor the labels), then the mIoU over the cells of
 present agents. Runs on the card unless ``--device cpu``: batches are copied
 ahead on a worker thread and batch n+1's predict is dispatched before batch
-n's classes are read. ``--visualization 1`` is not ported (ROADMAP.md Queue
-1, item 12).
+n's classes are read. ``--visualization 1`` (needs matplotlib) writes the
+predicted and true classes of each present agent of the first scene-frame
+as ``{logpath}/vis/seg_s{scene}_f{frame}_a{agent}.png``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -23,10 +25,11 @@ from disconet_tpu_torch.checkpoint import restore_or_die
 from disconet_tpu_torch.config import default_fusion_layer
 from disconet_tpu_torch.data.dataset import BatchIterator, V2XSimSeg, pad_batch_to
 from disconet_tpu_torch.device import resolve_device
-from disconet_tpu_torch.tools.det.train_codet import build, refuse_unported
+from disconet_tpu_torch.tools.det.train_codet import build
 from disconet_tpu_torch.tools.seg.train_codet import seg_config
 from disconet_tpu_torch.training import batch_to_device, pipeline_one_deep, prefetch_to_device
 from disconet_tpu_torch.training.seg_module import iou_per_class, make_seg_predict_step
+from disconet_tpu_torch.utils import visualization as vis
 
 CLASS_NAMES = ["background", "vehicle", "road", "terrain", "sidewalk", "building", "pedestrian", "vegetation"]
 
@@ -57,7 +60,8 @@ def main(argv=None):
         if args.layer != 3:
             print(f"--layer auto: {args.layer} (fusion map >=16x16 at "
                   f"--grid {args.grid}; pass --layer 3 for the reference index)")
-    refuse_unported([(args.visualization, "--visualization 1", "item 12 (needs matplotlib)")])
+    if args.visualization:
+        vis.require_matplotlib()
     dev = resolve_device(args.device)
     cfg = seg_config(args)
     dataset = V2XSimSeg(args.data, cfg, rsu=bool(args.rsu), bound=args.bound)
@@ -90,6 +94,8 @@ def main(argv=None):
         preds.append(pr)
         labels.append(batch["seg_label"])
         masks.append(np.broadcast_to(m, pr.shape))
+        if args.visualization and n_frames == 0:
+            _render_seg_frame(args.logpath, cfg, batch, pr)
         n_frames += int(np.sum(np.any(batch["agent_mask"], axis=1)))
     loop_s = time.perf_counter() - t0
 
@@ -104,6 +110,18 @@ def main(argv=None):
     print(f"{'mIoU':>12} | {res['miou']:.4f}")
     res["scenes_per_s"] = n_frames / loop_s
     return res
+
+
+def _render_seg_frame(logpath, cfg, batch, pr) -> None:
+    """Predicted vs true classes of each present agent of the batch's first
+    scene-frame, one png an agent under ``{logpath}/vis``."""
+    out_dir = os.path.join(logpath, "vis")
+    os.makedirs(out_dir, exist_ok=True)
+    scene, frame = (int(x) for x in batch["scene_frame"][0])
+    for a in np.flatnonzero(batch["agent_mask"][0]):
+        vis.save(vis.render_seg(pr[0, a], batch["seg_label"][0, a], num_classes=cfg.num_seg_classes,
+                                class_names=CLASS_NAMES),
+                 os.path.join(out_dir, f"seg_s{scene}_f{frame}_a{a}.png"))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ STPN with a SegHead; ``--layer`` defaults by ``--grid`` as in detection. Every
 (model, BatchNorm statistics, Adam; the newest ``--ckpt_keep`` kept).
 ``--resume`` takes a ``.pth`` file, a ``ckpt/`` directory or the log
 directory holding one; ``--auto_resume_path`` continues from
-``{path}/{mode}/ckpt``. Not ported; each exits naming its ROADMAP item:
+``{path}/{mode}/ckpt``. ``--debug_nans 1`` (the port's, as the det CLI's)
+runs autograd's anomaly mode and stops at the first step whose loss or a
+gradient is not finite. Not ported; each exits naming its ROADMAP item:
 ``--remat 1``, ``--steps_per_dispatch`` > 1.
 """
 
@@ -28,6 +30,7 @@ from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.tools.det.train_codet import build, refuse_unported
 from disconet_tpu_torch.training import MetricLogger, prefetch_to_device
 from disconet_tpu_torch.training.seg_module import create_seg_train_state, make_seg_train_step
+from disconet_tpu_torch.utils import profiling
 
 
 def parse_args(argv=None):
@@ -58,6 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--steps_per_dispatch", type=int, default=1, help="optimizer steps per device call")
     p.add_argument("--ckpt_every", type=int, default=1, help="save checkpoints every N epochs")
     p.add_argument("--ckpt_keep", type=int, default=5, help="ckpt/ checkpoints retained (0 = keep all)")
+    p.add_argument("--debug_nans", type=int, default=0, help="stop at the first non-finite loss or gradient")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.layer is None:
@@ -79,6 +83,11 @@ def seg_config(args) -> Config:
 
 def main(argv=None):
     args = parse_args(argv)
+    with profiling.nan_checks(args.debug_nans):
+        return _train(args)
+
+
+def _train(args):
     refuse_unported([
         (args.remat, "--remat 1", "item 10 (train_remat)"),
         (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1", "item 10 (make_train_step_multi)"),
@@ -122,8 +131,11 @@ def main(argv=None):
             waited += time.perf_counter() - t0
             if dev_batch is None:
                 break
-            metrics = train_step(dev_batch)
             step += 1
+            if args.debug_nans:
+                metrics = profiling.checked_step(train_step, model, step, dev_batch)
+            else:
+                metrics = train_step(dev_batch)
             if step % args.log_every == 0:
                 logger.write(step, {k: float(v) for k, v in metrics.items()}, prefix=f"epoch {epoch}")
         final = {k: float(v) for k, v in metrics.items()}  # waits for the epoch's device work

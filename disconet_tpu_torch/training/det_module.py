@@ -82,6 +82,13 @@ def get_bev(batch: Batch, key: str, config: Config) -> torch.Tensor:
     return unpack_bev(batch[key + "_packed"], config.bev_shape[-1])
 
 
+def get_bev_np(batch: Dict[str, np.ndarray], key: str, config: Config) -> np.ndarray:
+    """:func:`get_bev` of a host batch: the dense (B, A, H, W, Z) uint8 grid."""
+    if key in batch:
+        return batch[key]
+    return unpack_bev(torch.from_numpy(batch[key + "_packed"]), config.bev_shape[-1]).numpy()
+
+
 def batch_to_device(
     batch: Dict[str, np.ndarray], device: Optional[Union[str, torch.device]] = None
 ) -> Batch:
@@ -311,8 +318,9 @@ def make_eval_step(
 def make_predict_step(model: nn.Module, config: Config) -> Callable:
     """The inference step: forward, scores, rotated NMS with the IoU kernel on
     the card. Returns boxes (B, A, K, 5), scores (B, A, K) and keep (B, A, K),
-    false for absent agents; K = ``config.nms_top_k``. With ``num_classes``
-    > 2 the NMS runs per class (:func:`ops.nms.multiclass_nms_decode`) and
+    false for absent agents; K = ``config.nms_top_k``. ``config.packed_nms``
+    selects the binary candidates on logits (``pipeline.detect``). With
+    ``num_classes`` > 2 the NMS runs per class (:func:`ops.nms.multiclass_nms_decode`) and
     the step returns ``(boxes, scores, keep, labels)`` with K' =
     (num_classes - 1) * K slots an agent."""
     anchors = torch.from_numpy(make_anchors(config)).to(next(model.parameters()).device)

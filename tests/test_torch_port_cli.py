@@ -388,10 +388,6 @@ def test_cli_kd_cycle_late_fusion_and_pose_noise(capsys, cli_data, tmp_path):
     (train_codet.main, ["--steps_per_dispatch", "2"], "make_train_step_multi"),
     (train_codet.main, ["--mesh_agent", "2"], "item 16"),
     (train_codet.main, ["--mesh_spatial", "2"], "item 16"),
-    (train_codet.main, ["--visualization", "1"], "item 12"),
-    (train_codet.main, ["--debug_nans", "1"], "item 12"),
-    (test_codet.main, ["--warp_dtype", "float32"], "item 12"),
-    (test_codet.main, ["--visualization", "1"], "item 12"),
     (create_data_seg.main, ["--mode", "nuscenes"], "item 11"),
     (create_data_det.main, ["--mode", "nuscenes"], "item 11"),
 ])

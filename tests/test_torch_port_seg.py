@@ -293,7 +293,6 @@ def test_seg_cli_cycle_on_cpu(capsys, seg_data, tmp_path):
 @pytest.mark.parametrize("main,argv,needle", [
     (train_codet.main, ["--remat", "1"], "item 10"),
     (train_codet.main, ["--steps_per_dispatch", "2"], "item 10"),
-    (test_codet.main, ["--visualization", "1"], "item 12"),
 ])
 def test_seg_cli_refuses_what_is_not_ported(seg_data, tmp_path, main, argv, needle):
     extra = ["--grid", "32", "--device", "cpu", "--logpath", str(tmp_path)]
