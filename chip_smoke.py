@@ -92,6 +92,22 @@ Phases, each printing its own line; any failure exits non-zero:
    ``predict`` in turns, 3 windows of 20 calls each; ``rotated_nms`` on
    caller boxes and the flat layout of ``rotated_nms_decode`` with the IoU
    kernel against the plain IoU: keep and boxes equal.
+12. K optimizer steps per dispatch as one CUDA graph, rematerialization and
+   the CLI options of item 10 and 11, at the full ``Config()`` width on
+   phase 7's batch, bf16. DiscoNet's KD step from the teacher's cached
+   taps: a graph of K = 8 steps against 8 single steps from the same
+   weights (each step's loss within ``K_STEP_LOSS_RTOL``, every metric
+   finite, the BatchNorm statistics moved), then both timed in turns, 3
+   windows of 8 steps each (ms a step, scenes/s, the device's idle share
+   from torch.profiler); the same for the UNet seg step. One plain step with
+   ``train_remat`` against one without from the same weights (metrics and
+   each group's gradients), with the peak memory of each at batch 4 and at
+   the largest of 16 and 8 that the plain step fits. ``train_codet
+   --steps_per_dispatch 8`` at batch 1 over 2 scenes x 5 frames (a graph
+   and a tail of 2 an epoch), auto-resumed, then ``test_codet`` (its table
+   counts the dataset's ``#gt``; the IoU kernel ran on every predict
+   batch). ``create_data_det --mode nuscenes`` exits naming
+   nuscenes-devkit, which the card's machine lacks.
 
 Prints the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -551,6 +567,7 @@ def main(argv) -> int:
     cli = _phase9(cfg, host7, tb, kd_step, teacher)
     other = _phase10(cfg, host7, tb, (pts_d, trans_d, amask_d, anchors))
     packed = _phase11(cfg, model, (pts_d, trans_d, amask_d, anchors))
+    kstep = _phase12(cfg, host7, teacher)
 
     kernels = [
         {
@@ -562,7 +579,8 @@ def main(argv) -> int:
             "path_launches": {"predict": launches["voxelize"], "trained predict": train_launches["voxelize"],
                               "test_codet": cli["launches"]["voxelize"],
                               **{f"predict {c}": n["voxelize"] for c, n in other.items()},
-                              "predict packed_nms": packed["voxelize"]},
+                              "predict packed_nms": packed["voxelize"],
+                              "test_codet after K-step training": kstep["launches"]["voxelize"]},
             "max_abs_err": vox_err,
             "ms": vox_ms,
             "device_ms": vox_dev_ms,
@@ -580,7 +598,8 @@ def main(argv) -> int:
             "path_launches": {"predict": launches["rotated_iou"], "trained predict": train_launches["rotated_iou"],
                               "test_codet": cli["launches"]["rotated_iou"],
                               **{f"predict {c}": n["rotated_iou"] for c, n in other.items()},
-                              "predict packed_nms": packed["rotated_iou"]},
+                              "predict packed_nms": packed["rotated_iou"],
+                              "test_codet after K-step training": kstep["launches"]["rotated_iou"]},
             "max_abs_err": max(iou_err, main_iou_err),
             "ms": iou_ms,
             "device_ms": iou_dev_ms,
@@ -949,20 +968,20 @@ def _phase11(cfg, model, main_path):
 OTHER_COMS = ("sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com")
 
 
+def _layer_group(name):
+    """The group of layers of a parameter name."""
+    if name.startswith("stpn.stages_"):
+        return "encoder"
+    if name.startswith(("stpn.dec_", "stpn.head_conv.")):
+        return "decoder"
+    return "heads" if name.startswith(("heads.", "seg_head.")) else "fusion"
+
+
 def _grad_groups(model):
     """{group of layers: global norm of its gradients} after a backward."""
-    import torch
-
     sq = {}
     for k, p in model.named_parameters():
-        if k.startswith("stpn.stages_"):
-            g = "encoder"
-        elif k.startswith(("stpn.dec_", "stpn.head_conv.")):
-            g = "decoder"
-        elif k.startswith(("heads.", "seg_head.")):
-            g = "heads"
-        else:
-            g = "fusion"
+        g = _layer_group(k)
         sq[g] = sq.get(g, 0.0) + (p.grad.float().square().sum().item() if p.grad is not None else 0.0)
     return {g: v ** 0.5 for g, v in sq.items()}
 
@@ -1132,6 +1151,223 @@ def _phase10(cfg, host7, tb, main_path):
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     return all_launches
+
+
+# K-step graph against single steps at full width, bf16: each step's loss,
+# relative; steps 1-2, then the rest. The warp's backward adds with atomics,
+# so the two paths part from step 2 and the trajectory amplifies it: three
+# H100 runs read up to 6.3e-5 at step 2 and 3.3e-3, 6.9e-3 and 1.0e-2 by
+# step 8 (PERF.md §5). A skipped update or a stale batch moves a loss
+# by 10% or more.
+K_STEP_LOSS_RTOL = (1e-3, 5e-2)
+# remat against plain, one bf16 step from the same weights: metrics
+# (relative) and each group's gradient (relative L2). The recompute repeats
+# the forward's arithmetic; the warp's atomics move the gradients: 1.1e-6
+# and 1.3e-3 (encoder) on the H100 (PERF.md §5)
+REMAT_METRIC_RTOL = 1e-3
+REMAT_GRAD_REL = 2e-2
+K_STEPS = 8
+
+
+def _superbatch(host, k):
+    """``k`` copies of a host batch stacked for a K-step dispatch."""
+    from disconet_tpu_torch.training import stack_host_batches
+
+    return stack_host_batches([host] * k)
+
+
+def _k_step_vs_single(name, model_fn, step_fn, multi_fn, tb, sb):
+    """Two models from the same weights: ``K_STEPS`` single steps on ``tb``
+    against one K-step graph on the superbatch ``sb``; then both timed in
+    turns, 3 windows of one dispatch (K steps) each, with the device's busy
+    share from torch.profiler. Returns the printed readings."""
+    import torch
+
+    single_model, graph_model = model_fn(), model_fn()
+    stats0 = {k: v.clone() for k, v in graph_model.state_dict().items() if k.endswith("running_var")}
+    single, multi = step_fn(single_model), multi_fn(graph_model)
+    rows = [single(tb) for _ in range(K_STEPS)]
+    want = {k: torch.stack([r[k] for r in rows]).float().cpu() for k in rows[0]}
+    t0 = time.perf_counter()
+    got = {k: v.float().cpu() for k, v in multi(sb).items()}  # the capture, then the first replay
+    capture_s = time.perf_counter() - t0
+    bad = [k for k, v in got.items() if v.shape != (K_STEPS,) or not torch.isfinite(v).all()]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{name}: K-step metrics {got}")
+    rel = (got["loss"] - want["loss"]).abs() / want["loss"].abs()
+    early, late = K_STEP_LOSS_RTOL
+    print(f"{name}: K-step graph vs {K_STEPS} single steps, loss relative difference per step "
+          + ", ".join(f"{r:.2e}" for r in rel.tolist()) + f" (limits {early} to step 2, {late} after); capture "
+          f"and first replay {capture_s:.2f} s")
+    if rel[:2].max() > early or rel.max() > late:
+        raise AssertionError(f"{name}: K-step losses part from the single steps' by {rel.tolist()}")
+    if all(torch.equal(v, stats0[k]) for k, v in graph_model.state_dict().items() if k in stats0):
+        raise AssertionError(f"{name}: the K-step graph did not move the BatchNorm statistics")
+    runs = {"single": lambda: [single(tb) for _ in range(K_STEPS)], "graph": lambda: multi(sb)}
+    windows = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            windows[k].append((time.perf_counter() - t0) * 1e3 / K_STEPS)
+    busy = {k: _device_ms(fn, iters=1, warmup=0)[0] / K_STEPS for k, fn in runs.items()}
+    out = {}
+    for k in runs:
+        ms = sorted(windows[k])[1]
+        out[k] = {"ms": ms, "scenes_per_s": BATCH * 1e3 / ms, "idle": 1 - busy[k] / ms, "device_ms": busy[k]}
+        print(f"{name} {k}: {ms:.3f} ms per step (median of 3 windows of {K_STEPS} steps: "
+              + ", ".join(f"{w:.3f}" for w in windows[k]) + f"), {BATCH * 1e3 / ms:.2f} scenes/s, device "
+              f"{busy[k]:.3f} ms per step (torch.profiler), idle {100 * (1 - busy[k] / ms):.1f}%")
+    return out
+
+
+def _phase12(cfg, host7, teacher):
+    """K optimizer steps per dispatch as one CUDA graph, rematerialization
+    and the CLI options of the seventh slice (see the module docstring).
+    Returns the IoU and voxelize launches of its ``test_codet`` run."""
+    import numpy as np
+    import torch
+
+    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch.data.dataset import V2XSimDet
+    from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
+    from disconet_tpu_torch.ops.voxelize import voxelize_occupy
+    from disconet_tpu_torch.tools.det import create_data_det, test_codet, train_codet
+    from disconet_tpu_torch.training import (
+        batch_to_device, create_train_state, make_seg_train_step, make_seg_train_step_multi, make_train_step,
+        make_train_step_multi, precompute_teacher_feats,
+    )
+
+    t_phase = time.perf_counter()
+    # 1. DiscoNet KD from the cache: K steps in one graph against K single steps
+    host = {k: v for k, v in host7.items() if k != "bev_teacher"}
+    host["frame_idx"] = np.arange(BATCH, dtype=np.int32)
+    tables = precompute_teacher_feats(teacher, _Frames(host7), cfg, batch_size=BATCH)
+    tb, sb = batch_to_device(host), batch_to_device(_superbatch(host, K_STEPS))
+    kd = _k_step_vs_single(
+        "kd cache step", lambda: build_model("disco", cfg, seed=0, kd_flag=True),
+        lambda m: make_train_step(m, cfg, create_train_state(m), kd_flag=True, kd_from_cache=tables),
+        lambda m: make_train_step_multi(m, cfg, create_train_state(m), kd_flag=True, kd_from_cache=tables), tb, sb)
+    del tables, tb, sb
+    torch.cuda.empty_cache()
+
+    # 2. the seg step on the UNet
+    seg_host = {k: host7[k] for k in ("bev", "trans", "agent_mask")}
+    seg_host["seg_label"] = _seg_labels(host7["bev"], cfg.num_seg_classes)
+    tb, sb = batch_to_device(seg_host), batch_to_device(_superbatch(seg_host, K_STEPS))
+    seg = _k_step_vs_single(
+        "seg step", lambda: build_model("disco", cfg, seed=0, task="seg"),
+        lambda m: make_seg_train_step(m, cfg, create_train_state(m)),
+        lambda m: make_seg_train_step_multi(m, cfg, create_train_state(m)), tb, sb)
+    del tb, sb
+    torch.cuda.empty_cache()
+
+    # 3. one step with --remat's path against one without, from the same weights
+    def remat_step(remat, host_b, timed=False):
+        """(metrics, gradients, peak GiB, ms a step or None) of a first step."""
+        c = dataclasses.replace(cfg, train_remat=remat)
+        model = build_model("disco", c, seed=0)
+        opt = create_train_state(model)
+        grads = {}
+        opt_step = opt.step
+
+        def grab_then_step(*a, **k):  # the first step's gradients, before Adam's update
+            if not grads:
+                grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None})
+            return opt_step(*a, **k)
+
+        opt.step = grab_then_step
+        b = batch_to_device(host_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(model, c, opt)
+        metrics = {k: float(v) for k, v in step(b).items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = _time_ms(lambda: step(b), iters=3, warmup=1) if timed else None
+        del model, opt, b, step
+        torch.cuda.empty_cache()
+        return metrics, grads, peak, ms
+
+    plain_host = {k: v for k, v in host7.items() if k != "bev_teacher"}
+    (m0, g0, p0, t0), (m1, g1, p1, t1) = remat_step(False, plain_host, True), remat_step(True, plain_host, True)
+    m_rel = max(abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
+    num, den = {}, {}
+    for k, g in g0.items():
+        grp = _layer_group(k)
+        num[grp] = num.get(grp, 0.0) + (g1[k] - g).float().square().sum().item()
+        den[grp] = den.get(grp, 0.0) + g.float().square().sum().item()
+    g_rel = {grp: (num[grp] / den[grp]) ** 0.5 for grp in num}
+    del g0, g1
+    print(f"remat: one bf16 step against the plain step from the same weights: metrics relative difference "
+          f"{m_rel:.2e} (limit {REMAT_METRIC_RTOL}), gradients' relative L2 distance by group "
+          + ", ".join(f"{g} {v:.2e}" for g, v in sorted(g_rel.items())) + f" (limit {REMAT_GRAD_REL}); peak "
+          f"{p0:.2f} GiB plain, {p1:.2f} GiB remat at batch {BATCH}; {t0:.3f} ms a step plain, {t1:.3f} ms remat "
+          "(3 steps after 1)")
+    if m_rel > REMAT_METRIC_RTOL or max(g_rel.values()) > REMAT_GRAD_REL:
+        raise AssertionError(f"remat step vs plain: metrics {m0} / {m1}, gradient distances {g_rel}")
+    peaks = {}
+    for n in (16, 8):
+        big = {k: np.concatenate([v] * (n // BATCH)) for k, v in plain_host.items()}
+        try:
+            peaks[n] = (remat_step(False, big)[2], remat_step(True, big)[2])
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"remat: the plain step does not fit at batch {n}")
+    for n, (pp, pr) in peaks.items():
+        print(f"remat: peak {pp:.2f} GiB plain, {pr:.2f} GiB remat at batch {n}, the largest of 8 and 16 that "
+              "the plain step fits")
+    del big
+    torch.cuda.empty_cache()
+
+    # 4. the det CLIs with --steps_per_dispatch 8: a group of 8 and a tail of 2 an epoch
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="kstep_", dir=build)
+    grid = ["--grid", str(cfg.bev_shape[0])]
+    try:
+        _cli(create_data_det.main, ["--data", work, "--mode", "synthetic", "--scenes", "2", "--frames", "5", *grid])
+        data, logs = os.path.join(work, "train"), os.path.join(work, "logs")
+        ds = V2XSimDet(data, cfg)
+        n_gt = sum(len(g) for i in range(len(ds)) for g, m in zip(ds[i]["gt_boxes"], ds[i]["agent_mask"]) if m)
+        train = ["--data", data, *grid, "--batch", "1", "--com", "disco", "--logpath", logs, "--log_every", "1",
+                 "--steps_per_dispatch", str(K_STEPS)]
+        out, _ = _cli(train_codet.main, [*train, "--nepoch", "1"])
+        epochs = _epochs(out)
+        out, _ = _cli(train_codet.main, [*train, "--nepoch", "2", "--auto_resume_path", logs])
+        epochs += _epochs(out)
+        steps = [int(s) for s in re.findall(r"epoch \d+ done step (\d+):", out)]
+        if "auto-resumed from epoch 1" not in out or [e[0] for e in epochs] != [1, 2] or steps != [len(ds)]:
+            raise AssertionError(f"--steps_per_dispatch {K_STEPS}: epochs {epochs}, steps {steps}")
+        if not all(np.isfinite(e[1]) for e in epochs):
+            raise AssertionError(f"non-finite epoch losses: {epochs}")
+        voxelize_occupy.launches = 0
+        rotated_iou_matrix.launches = 0
+        out, _ = _cli(test_codet.main, ["--data", data, *grid, "--com", "disco", "--batch", "4", "--logpath", logs,
+                                        "--resume", os.path.join(logs, "disco", "epoch_2.pth")])
+        launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
+        table = _mean_ap_table(out)
+        if launches["rotated_iou"] < -(-len(ds) // 4) or table["average"][2] != n_gt:
+            raise AssertionError(f"test_codet after K-step training: launches {launches}, #gt "
+                                 f"{table['average'][2]} for {n_gt}")
+        for e, loss, sps, wait in epochs:
+            print(f"kstep cli epoch {e}: {sps:.2f} scenes/s, loader wait {100 * wait:.1f}%, loss {loss:.4f}")
+        print(f"kstep cli: {len(ds)} scene-frames at batch 1, a graph of {K_STEPS} and a tail of "
+              f"{len(ds) - K_STEPS} an epoch, resumed; test_codet #gt {n_gt} as the dataset, launches {launches}")
+        # 5. --mode nuscenes exits naming the devkit this machine lacks
+        try:
+            create_data_det.main(["--mode", "nuscenes", "--root", work, "--data", os.path.join(work, "nu")])
+            raise AssertionError("--mode nuscenes ran without nuscenes-devkit")
+        except SystemExit as e:
+            if "nuscenes-devkit" not in str(e):
+                raise AssertionError(f"--mode nuscenes exit: {e}") from None
+            print(f"create_data_det --mode nuscenes: exits with \"{str(e)[:60]}...\"")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "kd": kd, "seg": seg}
 
 
 if __name__ == "__main__":

@@ -131,8 +131,17 @@ def load_pth(model: nn.Module, path: str, optimizer: Optional[torch.optim.Optimi
     sd = ckpt.get("model_state_dict", ckpt)
     load_state_dict_strict(model, sd)
     if optimizer is not None and ckpt.get("optimizer_state_dict"):
-        optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        load_optimizer_state(optimizer, ckpt["optimizer_state_dict"])
     return model.eval(), int(ckpt.get("epoch", 0)), float(ckpt.get("loss", 0.0))
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: Dict) -> None:
+    """Load a saved optimizer state, keeping the optimizer's own
+    ``capturable`` flag: a run saved on the card (capturable Adam, its step
+    count on the device) resumes on the CPU, and the other way round."""
+    groups = [{**saved, "capturable": cur["capturable"]} if "capturable" in saved and "capturable" in cur else saved
+              for saved, cur in zip(state["param_groups"], optimizer.param_groups)]
+    optimizer.load_state_dict({**state, "param_groups": groups})
 
 
 class CheckpointIO:

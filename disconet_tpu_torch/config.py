@@ -78,6 +78,14 @@ class Config:
     # cls/reg views, the oracle path.
     packed_loss: bool = True
 
+    # Rematerialize in the training backward: the train steps run each
+    # encoder stage, the warp and fuse, each decoder stage and the head conv
+    # under torch.utils.checkpoint, so only the stage outputs are kept for
+    # the backward (models/backbone.py ``stage``), the boundaries the JAX
+    # package tags "stage_boundary". The same arithmetic runs twice; the
+    # BatchNorm running statistics update once.
+    train_remat: bool = False
+
     # "bfloat16": conv inputs and weights in bf16, accumulation and BatchNorm
     # in fp32. "float32": the exact mode the parity tests run.
     compute_dtype: str = "bfloat16"

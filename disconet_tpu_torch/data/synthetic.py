@@ -30,7 +30,7 @@ from disconet_tpu_torch.ops.boxes import box_corners_np, make_anchors
 from disconet_tpu_torch.ops.voxelize import voxelize_occupy_plain
 
 
-def _voxelize_np(points: np.ndarray, config: Config) -> np.ndarray:
+def voxelize_np(points: np.ndarray, config: Config) -> np.ndarray:
     """(N, 3) points -> (H, W, Z) float32 occupancy on the host."""
     pts = torch.from_numpy(np.ascontiguousarray(points, dtype=np.float32))
     return voxelize_occupy_plain(pts, config.voxel_size, config.area_extents).numpy()
@@ -336,8 +336,8 @@ def scene_to_frames(scene: Dict, config: Config, anchors: np.ndarray | None = No
         pts_i = to_agent(scene["points"][i])
         pts_teacher = to_agent(merged_world)
 
-        bev = _voxelize_np(pts_i, config)
-        bev_teacher = _voxelize_np(pts_teacher, config)
+        bev = voxelize_np(pts_i, config)
+        bev_teacher = voxelize_np(pts_teacher, config)
 
         boxes_i = _world_to_agent_boxes(scene["boxes_world"], T_wi)
         (x_lo, x_hi), (y_lo, y_hi), _ = config.area_extents

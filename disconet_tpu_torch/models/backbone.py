@@ -32,16 +32,64 @@ Module and parameter names give the JAX package's ``save_pth`` keys, e.g.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+import functools
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from disconet_tpu_torch.config import Config
 
 # flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch statistic
 MOMENTUM = 0.9
+
+# per thread: whether ``stage`` rematerializes (set by ``remat_stages``), and
+# whether a stage is being recomputed in the backward (no running-statistic
+# update). The backward runs on autograd's device thread on the card.
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def remat_stages(on: bool = True):
+    """Within the block, every ``stage`` run with grad enabled is
+    rematerialized (``config.train_remat``; the train steps enter it around
+    the forward)."""
+    prev = getattr(_local, "remat", False)
+    _local.remat = on
+    try:
+        yield
+    finally:
+        _local.remat = prev
+
+
+def stage(fn: Callable[..., torch.Tensor], *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)``, one stage between two boundaries that the backward keeps.
+
+    Under :func:`remat_stages` with grad enabled it runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+    stage from ``args`` instead of keeping its intermediates. The recompute
+    runs the training-mode BatchNorms a second time on the same values; it
+    leaves the running statistics alone, so they update once per step, as
+    the JAX package's functional ``batch_stats`` do."""
+    if not (getattr(_local, "remat", False) and torch.is_grad_enabled()):
+        return fn(*args)
+    calls = []
+
+    def run(*a):
+        if not calls:
+            calls.append(1)
+            return fn(*a)
+        _local.recompute = True
+        try:
+            return fn(*a)
+        finally:
+            _local.recompute = False
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +105,8 @@ def bn_channels_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 @torch.no_grad()
 def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    if getattr(_local, "recompute", False):  # the stage ran once already this step
+        return
     bn.running_mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
     bn.running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
 
@@ -242,7 +292,8 @@ class STPN(nn.Module):
         layer of the models that fuse fp32 maps, ``models/base.py``)."""
         feats = []
         for i in range(len(self.channels)):
-            x = getattr(self, f"stages_{i}")(x, store_bf16 and i != fp32_stage)
+            block = getattr(self, f"stages_{i}")
+            x = stage(functools.partial(block, store_bf16=store_bf16 and i != fp32_stage), x)
             feats.append(x)
         return feats
 
@@ -256,9 +307,9 @@ class STPN(nn.Module):
         x = feats[-1]
         taps = []
         for i in reversed(range(len(self.channels) - 1)):
-            x = getattr(self, f"dec_{i}")(x, feats[i], store_bf16)
+            x = stage(functools.partial(getattr(self, f"dec_{i}"), store_bf16=store_bf16), x, feats[i])
             taps.append(x)
-        head_in = self.head_conv(x, store_bf16 and not head_fp32)
+        head_in = stage(functools.partial(self.head_conv, store_bf16=store_bf16 and not head_fp32), x)
         taps.append(head_in)
         return head_in, taps
 

@@ -34,13 +34,14 @@ taps, each (B, A, h, w, c) fp32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from disconet_tpu_torch.config import Config
-from disconet_tpu_torch.models.backbone import SegHead, make_heads, make_stpn
+from disconet_tpu_torch.models.backbone import SegHead, make_heads, make_stpn, stage
 from disconet_tpu_torch.models.unet import make_unet, use_unet
 from disconet_tpu_torch.ops.warp import warp_features
 
@@ -158,27 +159,35 @@ class IntermediateFusionModel(nn.Module):
         -> (B, A, h, w, C)."""
         raise NotImplementedError
 
-    def encode_and_warp(self, bev: torch.Tensor, trans: torch.Tensor, store_bf16: bool = False):
-        """The encoder's maps (B*A, C, h, w) per stage, the fusion layer's map
-        (B, A, h, w, C) and its all-pairs warp (B, Ar, As, h, w, C), or None
-        where ``fuse`` does not read it."""
+    def encode(self, bev: torch.Tensor, store_bf16: bool = False):
+        """The encoder's maps (B*A, C, h, w) per stage and the fusion layer's
+        map (B, A, h, w, C)."""
         B, A = bev.shape[:2]
         k = self.layer
         bf16_fusion = self.fusion_store_bf16 and self.config.warp_dtype == "bfloat16"
         feats = self.stpn.encode(bev_to_batch(bev), store_bf16, None if bf16_fusion else k)
-        fk = batch_to_agents(feats[k].permute(0, 2, 3, 1), B, A)
-        warped = warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
-        return feats, fk, warped
+        return feats, batch_to_agents(feats[k].permute(0, 2, 3, 1), B, A)
+
+    def warp(self, fk: torch.Tensor, trans: torch.Tensor) -> Optional[torch.Tensor]:
+        """The all-pairs warp (B, Ar, As, h, w, C) of the fusion layer's map,
+        or None where ``fuse`` does not read it."""
+        return warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
+
+    def _warp_and_fuse(self, fk: torch.Tensor, agent_mask: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+        return self.fuse(fk, self.warp(fk, trans), agent_mask, trans)
 
     def forward(
         self, bev: torch.Tensor, trans: torch.Tensor, agent_mask: torch.Tensor, store_bf16: bool = False
     ) -> Dict[str, torch.Tensor]:
         """bev (B, A, H, W, Z), trans (B, A, A, 4, 4), agent_mask (B, A) bool;
-        ``store_bf16`` as ``ConvBNRelu.forward``."""
+        ``store_bf16`` as ``ConvBNRelu.forward``. The warp and the fusion are
+        one ``stage``: under ``train_remat`` the backward recomputes them from
+        the fusion layer's map."""
         B, A = bev.shape[:2]
         k = self.layer
-        feats, fk, warped = self.encode_and_warp(bev, trans, store_bf16)
-        fused = self.fuse(fk, warped, agent_mask.to(torch.bool), trans)
+        feats, fk = self.encode(bev, store_bf16)
+        fuse = functools.partial(self._warp_and_fuse, agent_mask=agent_mask.to(torch.bool), trans=trans)
+        fused = stage(fuse, fk)
         feats = list(feats)
         feats[k] = agents_to_batch(fused).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last

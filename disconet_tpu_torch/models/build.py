@@ -38,20 +38,33 @@ _FUSION = {
 _SINGLE_AGENT = ("", "lowerbound", "upperbound", "faf")
 
 
+# std of a standard normal truncated to [-2, 2]: dividing by it gives the
+# truncated draw unit variance (flax's variance_scaling "truncated_normal")
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal``, ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")``: a normal truncated to +-2 standard units, scaled to
+    variance 1/fan_in, with fan_in = Cin * kh * kw (the kernel's row)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / TRUNC_NORMAL_STD
+    draw = torch.empty(weight.shape)
+    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    weight.copy_(draw * std)
+
+
 def init_parameters(model: nn.Module, seed: int = 0) -> None:
-    """Seeded random weights: He-normal for ConvBNRelu kernels (ReLU follows),
-    LeCun-normal for the other convs (biased, linear or gated) and the dense
-    layers, zero biases, identity BatchNorm."""
+    """Seeded random weights as the JAX package draws them: flax's truncated
+    ``lecun_normal`` for every conv (ConvBNRelu included) and dense kernel,
+    zero biases, identity BatchNorm."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, ConvBNRelu):
-                fan_in = mod.weight[0].numel()
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * math.sqrt(2.0 / fan_in))
+                lecun_normal_(mod.weight, gen)
                 mod.BatchNorm_0.reset_parameters()
             elif isinstance(mod, (nn.Conv2d, nn.Linear)):
-                fan_in = mod.weight[0].numel()
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * math.sqrt(1.0 / fan_in))
+                lecun_normal_(mod.weight, gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
 

@@ -69,5 +69,5 @@ class DiscoNet(IntermediateFusionModel):
         and the scorer of the forward, without the decoder and the heads. The
         caller sets the mode and the grad mode; ``forward`` never computes
         more for them."""
-        _, fk, warped = self.encode_and_warp(bev, trans, store_bf16)
-        return self._weights(fk, warped, agent_mask.to(torch.bool))
+        _, fk = self.encode(bev, store_bf16)
+        return self._weights(fk, self.warp(fk, trans), agent_mask.to(torch.bool))

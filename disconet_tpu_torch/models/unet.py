@@ -13,6 +13,7 @@ the attribute name ``stpn`` for it, and the module names ``stages_i`` and
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -20,7 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from disconet_tpu_torch.config import Config
-from disconet_tpu_torch.models.backbone import _DecoderStage, _EncoderStage
+from disconet_tpu_torch.models.backbone import _DecoderStage, _EncoderStage, stage
 
 
 class _DoubleConv(_EncoderStage):
@@ -28,6 +29,11 @@ class _DoubleConv(_EncoderStage):
 
     def __init__(self, cin: int, cout: int, bf16: bool):
         super().__init__(cin, cout, 1, bf16)
+
+
+def _down(block: _DoubleConv, pool: bool, store_bf16: bool, x: torch.Tensor) -> torch.Tensor:
+    """One encoder stage: the 2x2 max-pool (stages after the first), then the DoubleConv."""
+    return block(F.max_pool2d(x, 2, 2) if pool else x, store_bf16)
 
 
 class UNet(nn.Module):
@@ -54,9 +60,8 @@ class UNet(nn.Module):
         """As ``STPN.encode``."""
         feats = []
         for i in range(len(self.channels)):
-            if i > 0:
-                x = F.max_pool2d(x, 2, 2)
-            x = getattr(self, f"stages_{i}")(x, store_bf16 and i != fp32_stage)
+            down = functools.partial(_down, getattr(self, f"stages_{i}"), i > 0, store_bf16 and i != fp32_stage)
+            x = stage(down, x)
             feats.append(x)
         return feats
 
@@ -66,7 +71,8 @@ class UNet(nn.Module):
         x = feats[-1]
         taps = []
         for i in reversed(range(len(self.channels) - 1)):
-            x = getattr(self, f"dec_{i}")(x, feats[i], store_bf16 and not (i == 0 and head_fp32))
+            up = functools.partial(getattr(self, f"dec_{i}"), store_bf16=store_bf16 and not (i == 0 and head_fp32))
+            x = stage(up, x, feats[i])
             taps.append(x)
         return x, taps
 

@@ -7,8 +7,9 @@ the JAX package's ``tools/bench_quality.py``.
     python -m disconet_tpu_torch.tools.bench_quality --out results/port_occluded_matrix.json --summarize
 
 Each (config, seed) cell trains through the port's ``train_codet`` (``--nepoch``
-epochs at ``--batch``, the final epoch's checkpoint only: ``--ckpt_every
-nepoch --ckpt_keep 1``) and evaluates that checkpoint on the val split
+epochs at ``--batch``, ``--steps_per_dispatch`` steps a dispatch, 8 by
+default as the JAX matrix trained, the final epoch's checkpoint only:
+``--ckpt_every nepoch --ckpt_keep 1``) and evaluates that checkpoint on the val split
 through ``test_codet``. ``--track_evals`` adds, for the trained configs of
 ``TRACK_EVALS``, ``test_codet --tracking --split val`` -> ``sort`` ->
 ``eval_mot`` in the config's own tracking log path. The data are the JAX
@@ -172,7 +173,8 @@ def stamp(args, flags, seconds: dict) -> dict:
     # "sha", "grid", "nepoch": the stamp of every results/ matrix cell
     return {"card": args.card, "sha": args.commit, "source_sha1": args.source_sha1,
             "device": args.device, "grid": args.grid, "nepoch": args.nepoch, "batch": args.batch,
-            "layer": layer, "ckpt": "final", **{k: round(v, 1) for k, v in seconds.items()}}
+            "steps_per_dispatch": args.steps_per_dispatch, "layer": layer, "ckpt": "final",
+            **{k: round(v, 1) for k, v in seconds.items()}}
 
 
 def cell_dirs(args, name: str, seed: int):
@@ -229,6 +231,7 @@ def run_cell(args, name: str, seed: int, results: dict) -> None:
                                     "--batch", str(args.batch), "--nepoch", str(args.nepoch),
                                     "--grid", str(args.grid), "--seed", str(seed), "--logpath", logpath,
                                     "--ckpt_every", str(args.nepoch), "--ckpt_keep", "1",
+                                    "--steps_per_dispatch", str(args.steps_per_dispatch),
                                     "--device", args.device], log_file, args.inprocess)
         seconds["train_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -322,6 +325,8 @@ def main(argv=None):
     p.add_argument("--configs", type=str, nargs="+", default=["disco", "lowerbound"], choices=sorted(CONFIGS))
     p.add_argument("--nepoch", type=int, default=100)
     p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--steps_per_dispatch", type=int, default=8,
+                   help="train_codet's optimizer steps per dispatch (the JAX matrix trained with 8)")
     p.add_argument("--grid", type=int, default=64)
     p.add_argument("--train_scenes", type=int, default=24)
     p.add_argument("--val_scenes", type=int, default=24)

@@ -19,8 +19,14 @@ checkpointed epoch, the first present agent of the first batch with the
 model's detections (``{logdir}/vis/epoch_{N}_a{agent}.png``).
 ``--debug_nans 1`` runs autograd's anomaly mode and stops at the first step
 whose loss or a gradient is not finite, naming the step and the value.
-Not ported; each exits naming its ROADMAP item: ``--remat 1``,
-``--steps_per_dispatch`` > 1, ``--mesh_agent``/``--mesh_spatial`` > 1.
+``--steps_per_dispatch K`` runs K optimizer steps per dispatch over K
+stacked batches, on the card one CUDA graph of the K steps
+(``training.make_train_step_multi``); an epoch's shorter tail group runs as
+single steps, and ``step`` advances by each group's length. With
+``--debug_nans 1`` every step of a group is checked on its own, without the
+graph. ``--remat 1`` rematerializes each stage in the backward
+(``config.train_remat``). Not ported: ``--mesh_agent``/``--mesh_spatial`` >
+1 exit naming ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -45,9 +51,10 @@ from disconet_tpu_torch.training import (
     make_train_step,
     precompute_teacher_feats,
     prefetch_to_device,
+    stack_host_batches,
     teacher_feat_bytes,
 )
-from disconet_tpu_torch.training.det_module import get_bev_np
+from disconet_tpu_torch.training.det_module import get_bev_np, multi_step
 from disconet_tpu_torch.utils import profiling, visualization as vis
 
 
@@ -116,16 +123,10 @@ def parse_args(argv=None):
     return args
 
 
-def refuse_unported(checks) -> None:
-    """Exit on the first set flag the port does not have: ``checks`` are
-    (is set, flag, ROADMAP item) triples."""
-    for on, flag, item in checks:
-        if on:
-            raise SystemExit(f"{flag} is not ported to the PyTorch port yet (ROADMAP.md Queue 1, {item})")
-
-
 def make_config(args) -> Config:
     over = dict(kd_weight=args.kd_weight, fusion_layer=args.layer)
+    if getattr(args, "remat", 0):
+        over["train_remat"] = True
     if args.warp_dtype:
         over["warp_dtype"] = args.warp_dtype
     if args.num_classes != 2:
@@ -171,8 +172,52 @@ def load_student_ckpt(args, model, optimizer) -> int:
     return 0
 
 
-def _floats(metrics):
-    return {k: float(v) for k, v in metrics.items()}
+def last_floats(metrics):
+    """Step metrics -> floats; a K-step dispatch stacks them (K,) per key,
+    and the last step's are logged."""
+    return {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
+
+
+def dispatch_groups(batches, k: int):
+    """Host batches as they are (``k`` 1), or stacked ``k`` at a time
+    (``stack_host_batches``), the epoch's tail as a shorter group."""
+    if k == 1:
+        yield from batches
+        return
+    group = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield stack_host_batches(group)
+            group = []
+    if group:
+        yield stack_host_batches(group)
+
+
+def steps_per_dispatch(args) -> int:
+    """``--steps_per_dispatch`` (at least 1); exits where the mesh flags ask
+    for more than one device, as the JAX CLI does."""
+    k = max(1, args.steps_per_dispatch)
+    if k > 1 and (getattr(args, "mesh_agent", 1) > 1 or getattr(args, "mesh_spatial", 1) > 1):
+        raise SystemExit("--steps_per_dispatch > 1 is single-device only (the mesh path shards per-batch)")
+    return k
+
+
+def run_dispatch(step_k, step1, model, step: int, batch, k: int, debug_nans: bool):
+    """One dispatch: ``step_k`` on a stacked group, or ``step1`` on a batch
+    (``k`` 1). Under ``--debug_nans`` each step runs and is checked on its
+    own. Returns (the step count after it, its metrics)."""
+    if k == 1:
+        step += 1
+        return step, (profiling.checked_step(step1, model, step, batch) if debug_nans else step1(batch))
+    n = next(iter(batch.values())).shape[0]
+    if not debug_nans:
+        return step + n, step_k(batch)
+    rows = []
+    for i in range(n):
+        step += 1
+        rows.append(profiling.checked_step(step1, model, step, {key: v[i] for key, v in batch.items()}))
+    return step, {key: torch.stack([r[key] for r in rows]) for key in rows[0]}
 
 
 def main(argv=None):
@@ -182,11 +227,10 @@ def main(argv=None):
 
 
 def _train(args):
-    refuse_unported([
-        (args.remat, "--remat 1", "item 10 (train_remat)"),
-        (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1", "item 10 (make_train_step_multi)"),
-        (args.mesh_agent > 1 or args.mesh_spatial > 1, "--mesh_agent/--mesh_spatial > 1", "item 16"),
-    ])
+    K = steps_per_dispatch(args)
+    if args.mesh_agent > 1 or args.mesh_spatial > 1:
+        raise SystemExit("--mesh_agent/--mesh_spatial > 1 is not ported to the PyTorch port yet "
+                         "(ROADMAP.md Queue 1, item 16)")
     if args.visualization:
         vis.require_matplotlib()
     dev = resolve_device(args.device)
@@ -240,6 +284,8 @@ def _train(args):
                   f"> --kd_cache_gb {args.kd_cache_gb}; re-forwarding per step")
     train_step = make_train_step(model, cfg, optimizer, teacher=teacher, kd_flag=bool(args.kd_flag),
                                  kd_from_cache=kd_cache)
+    # K steps a dispatch: one CUDA graph on the card (make_train_step_multi)
+    train_k = multi_step(train_step, model, optimizer) if K > 1 else None
 
     def host_batches():
         for batch in loader:
@@ -258,31 +304,28 @@ def _train(args):
         t_ep = time.perf_counter()
         waited = 0.0  # seconds the loop waited for its next device batch
         last, metrics = {}, None
-        batches = prefetch_to_device(host_batches(), dev)
+        batches = prefetch_to_device(dispatch_groups(host_batches(), K), dev)
         while True:
             t0 = time.perf_counter()
             dev_batch = next(batches, None)
             waited += time.perf_counter() - t0
             if dev_batch is None:
                 break
+            # >=: with K > 1 `step` advances by K and may jump past 2
             if args.profile and not profile_done and prof is None and step >= 2:
                 from torch.profiler import ProfilerActivity, profile
 
                 activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
                 prof = profile(activities=activities)
                 prof.__enter__()
-            step += 1
-            if args.debug_nans:
-                metrics = profiling.checked_step(train_step, model, step, dev_batch)
-            else:
-                metrics = train_step(dev_batch)
+            step, metrics = run_dispatch(train_k, train_step, model, step, dev_batch, K, args.debug_nans)
             if prof is not None and step >= 2 + args.profile:
                 _end_profile(prof, dev, logdir)
                 prof, profile_done = None, True
             if step % args.log_every == 0:
-                last = _floats(metrics)
+                last = last_floats(metrics)
                 logger.write(step, last, prefix=f"epoch {epoch}")
-        final = _floats(metrics)  # waits for the epoch's device work
+        final = last_floats(metrics)  # waits for the epoch's device work
         last = last or final
         dt = time.perf_counter() - t_ep
         logger.write(step, {**last, "scenes_per_sec": len(loader) * args.batch / dt,

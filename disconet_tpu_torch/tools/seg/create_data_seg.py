@@ -7,8 +7,9 @@
 The synthetic generator writes ``seg_label`` beside the detection targets,
 so ``--mode synthetic`` writes the files of the detection generator (and of
 the JAX package's CLI for the same flags) under ``{data}/{split}/``.
-``--mode nuscenes`` (a V2X-Sim release walked with ``nuscenes-devkit``) is
-not ported.
+``--mode nuscenes`` walks a V2X-Sim release under ``--root`` as the det CLI
+does, writing ``seg_label`` from the points' semantic labels with the gt
+vehicles painted on top (``nuscenes_walker.create_seg_data_from_nuscenes``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 
 from disconet_tpu_torch.config import Config, tiny_config
 from disconet_tpu_torch.data.synthetic import generate_dataset
+from disconet_tpu_torch.tools.det.create_data_det import from_nuscenes
 
 
 def main(argv=None):
@@ -36,18 +38,16 @@ def main(argv=None):
     p.add_argument("--grid", type=int, default=256)
     p.add_argument("--version", type=str, default="v2.0-mini", help="nuscenes: release version string")
     p.add_argument("--sweeps", type=int, default=1, help="nuscenes: LiDAR sweeps to aggregate per frame")
-    p.add_argument("--scene_begin", type=int, default=None, help="nuscenes: first scene index")
-    p.add_argument("--scene_end", type=int, default=None, help="nuscenes: one past the last scene index")
+    p.add_argument("--scene_begin", type=int, default=None,
+                   help="nuscenes: first scene index (default: by split, SPLIT_SCENE_RANGES)")
+    p.add_argument("--scene_end", type=int, default=None,
+                   help="nuscenes: one past the last scene index (default: by split)")
     args = p.parse_args(argv)
 
-    if args.mode == "nuscenes":
-        raise SystemExit(
-            "--mode nuscenes is not ported (ROADMAP.md Queue 1, item 11): it needs "
-            "nuscenes-devkit; use --mode synthetic, or the JAX package's "
-            "tools/seg/create_data_seg.py, whose output the port reads"
-        )
     cfg = Config(split=args.split) if args.grid == 256 else tiny_config(args.grid, split=args.split)
     out = os.path.join(args.savepath, args.split)
+    if args.mode == "nuscenes":
+        return from_nuscenes(args, cfg, out, "create_seg_data_from_nuscenes")
     seed = args.seed if args.seed is not None else {"train": 0, "val": 10_000, "test": 20_000}[args.split]
     n_files, n_frames = generate_dataset(
         out, cfg, num_scenes=args.scenes, frames_per_scene=args.frames, seed=seed,

@@ -13,8 +13,10 @@ STPN with a SegHead; ``--layer`` defaults by ``--grid`` as in detection. Every
 directory holding one; ``--auto_resume_path`` continues from
 ``{path}/{mode}/ckpt``. ``--debug_nans 1`` (the port's, as the det CLI's)
 runs autograd's anomaly mode and stops at the first step whose loss or a
-gradient is not finite. Not ported; each exits naming its ROADMAP item:
-``--remat 1``, ``--steps_per_dispatch`` > 1.
+gradient is not finite. ``--steps_per_dispatch K`` and ``--remat 1`` as in
+the det CLI: K steps a dispatch over K stacked batches (one CUDA graph on
+the card, ``training.make_seg_train_step_multi``), stages rematerialized in
+the backward (``config.train_remat``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from disconet_tpu_torch.checkpoint import CheckpointIO, restore_or_die
 from disconet_tpu_torch.config import Config, default_fusion_layer, tiny_config
 from disconet_tpu_torch.data.dataset import BatchIterator, V2XSimSeg
 from disconet_tpu_torch.device import resolve_device
-from disconet_tpu_torch.tools.det.train_codet import build, refuse_unported
+from disconet_tpu_torch.tools.det.train_codet import last_floats, build, dispatch_groups, run_dispatch, steps_per_dispatch
 from disconet_tpu_torch.training import MetricLogger, prefetch_to_device
+from disconet_tpu_torch.training.det_module import multi_step
 from disconet_tpu_torch.training.seg_module import create_seg_train_state, make_seg_train_step
 from disconet_tpu_torch.utils import profiling
 
@@ -78,6 +81,8 @@ def mode_name(args) -> str:
 
 def seg_config(args) -> Config:
     over = dict(fusion_layer=args.layer, seg_backbone=args.seg_backbone)
+    if getattr(args, "remat", 0):  # test_codet shares this, without the flag
+        over["train_remat"] = True
     return Config(**over) if args.grid == 256 else tiny_config(args.grid, **over)
 
 
@@ -88,10 +93,7 @@ def main(argv=None):
 
 
 def _train(args):
-    refuse_unported([
-        (args.remat, "--remat 1", "item 10 (train_remat)"),
-        (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1", "item 10 (make_train_step_multi)"),
-    ])
+    K = steps_per_dispatch(args)
     dev = resolve_device(args.device)
     cfg = seg_config(args)
 
@@ -119,26 +121,23 @@ def _train(args):
 
     logger = MetricLogger(logdir, log=args.log)
     train_step = make_seg_train_step(model, cfg, optimizer)
+    train_k = multi_step(train_step, model, optimizer) if K > 1 else None
     step = 0
     for epoch in range(start_epoch + 1, args.nepoch + 1):
         t_ep = time.perf_counter()
         waited = 0.0  # seconds the loop waited for its next device batch
         metrics = None
-        batches = prefetch_to_device(loader, dev)
+        batches = prefetch_to_device(dispatch_groups(loader, K), dev)
         while True:
             t0 = time.perf_counter()
             dev_batch = next(batches, None)
             waited += time.perf_counter() - t0
             if dev_batch is None:
                 break
-            step += 1
-            if args.debug_nans:
-                metrics = profiling.checked_step(train_step, model, step, dev_batch)
-            else:
-                metrics = train_step(dev_batch)
+            step, metrics = run_dispatch(train_k, train_step, model, step, dev_batch, K, args.debug_nans)
             if step % args.log_every == 0:
-                logger.write(step, {k: float(v) for k, v in metrics.items()}, prefix=f"epoch {epoch}")
-        final = {k: float(v) for k, v in metrics.items()}  # waits for the epoch's device work
+                logger.write(step, last_floats(metrics), prefix=f"epoch {epoch}")
+        final = last_floats(metrics)  # waits for the epoch's device work
         dt = time.perf_counter() - t_ep
         logger.write(step, {**final, "scenes_per_sec": len(loader) * args.batch / dt,
                             "loader_wait_share": waited / dt}, prefix=f"epoch {epoch} done")

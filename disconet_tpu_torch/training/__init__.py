@@ -8,9 +8,11 @@ from disconet_tpu_torch.training.det_module import (
     make_eval_step,
     make_predict_step,
     make_train_step,
+    make_train_step_multi,
     pipeline_one_deep,
     precompute_teacher_feats,
     prefetch_to_device,
+    stack_host_batches,
     teacher_feat_bytes,
 )
 from disconet_tpu_torch.training.metrics import AverageMeter, MetricLogger
@@ -19,6 +21,7 @@ from disconet_tpu_torch.training.seg_module import (
     iou_per_class,
     make_seg_predict_step,
     make_seg_train_step,
+    make_seg_train_step_multi,
 )
 
 __all__ = [
@@ -33,9 +36,12 @@ __all__ = [
     "make_predict_step",
     "make_seg_predict_step",
     "make_seg_train_step",
+    "make_seg_train_step_multi",
     "make_train_step",
+    "make_train_step_multi",
     "pipeline_one_deep",
     "precompute_teacher_feats",
     "prefetch_to_device",
+    "stack_host_batches",
     "teacher_feat_bytes",
 ]

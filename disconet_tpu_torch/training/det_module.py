@@ -34,11 +34,11 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.ops.bitpack import pack_bev_np, unpack_bev
+from disconet_tpu_torch.models.backbone import remat_stages
 from disconet_tpu_torch.models.faf_net import TeacherNet
 from disconet_tpu_torch.ops.boxes import make_anchors
 from disconet_tpu_torch.ops.losses import (
@@ -116,8 +116,13 @@ def batch_to_device(
 def create_train_state(model: nn.Module, lr: float = 1e-3) -> torch.optim.Adam:
     """The optimizer over ``model``'s parameters: Adam(lr), betas (0.9,
     0.999), eps 1e-8, no weight decay, no schedule (the update of
-    ``optax.adam``). The model itself holds the rest of the training state."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    ``optax.adam``). The model itself holds the rest of the training state.
+
+    On the card Adam is ``capturable``: its step count lives on the device,
+    so a CUDA graph can hold its update (:func:`make_train_step_multi`)."""
+    on_card = next(model.parameters()).device.type == "cuda"
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+                            capturable=on_card)
 
 
 def _losses(out, batch: Batch, config: Config, teacher_out=None):
@@ -155,7 +160,9 @@ def _losses(out, batch: Batch, config: Config, teacher_out=None):
         if "reg_pos_cls" in batch:
             cls_map = torch.zeros((B, A, n_flat + 1), dtype=torch.long, device=idx.device)
             cls_map.scatter_(2, idx, batch["reg_pos_cls"].long())
-            label = F.one_hot(cls_map[..., :n_flat].reshape(B, A, H, W, NA), out["cls"].shape[-1]).float()
+            classes = torch.arange(out["cls"].shape[-1], device=idx.device)
+            # a comparison, not F.one_hot, which checks its indices on the host
+            label = (cls_map[..., :n_flat].reshape(B, A, H, W, NA, 1) == classes).float()
         else:
             pos = torch.zeros((B, A, n_flat + 1), device=idx.device).scatter_(2, idx, 1.0)
             pos = pos[..., :n_flat].reshape(B, A, H, W, NA)
@@ -218,7 +225,10 @@ def make_train_step(
     ``kd_from_cache``: the teacher's taps of every frame, the tables of
     :func:`precompute_teacher_feats`. Given with ``kd_flag``, the step reads
     the batch's rows by ``frame_idx`` instead of running the teacher: the
-    frozen teacher's taps are the same every epoch."""
+    frozen teacher's taps are the same every epoch.
+
+    ``config.train_remat`` runs the forward under ``remat_stages``: the
+    backward recomputes each stage from its boundary."""
 
     def train_step(batch: Batch) -> Batch:
         if kd_flag and kd_from_cache is not None:
@@ -227,7 +237,8 @@ def make_train_step(
         else:
             teacher_out = _teacher_out(teacher, kd_flag, batch, config)
         model.train()
-        out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
+        with remat_stages(config.train_remat):
+            out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
         loss, metrics = _losses(out, batch, config, teacher_out)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -237,6 +248,143 @@ def make_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def stack_host_batches(batches: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """K same-shaped host batches -> one superbatch whose every leaf gains a
+    leading K axis, for :func:`make_train_step_multi`. Only array leaves
+    stack: list-valued keys (``gt_boxes``) never go to the card and are
+    dropped."""
+    keys = [k for k in batches[0] if isinstance(batches[0][k], np.ndarray)]
+    return {k: np.stack([b[k] for b in batches]) for k in keys}
+
+
+def _group_len(stacked: Batch) -> int:
+    return next(iter(stacked.values())).shape[0]
+
+
+def _run_each(step: Callable[[Batch], Batch], stacked: Batch) -> Batch:
+    """``step`` on each row of a stacked batch in turn; metrics stacked (K,)."""
+    rows = [step({k: v[i] for k, v in stacked.items()}) for i in range(_group_len(stacked))]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+class _StepGraph:
+    """K train steps over a stacked batch, captured as one CUDA graph.
+
+    The whole-network capture recipe: a few steps on a side stream warm up
+    what is built on first use (cuDNN plans, Adam's state, autograd's
+    buffers); the parameters, BatchNorm statistics and Adam's state are then
+    put back as they were, the gradients dropped, and the K steps captured,
+    reading a static copy of the batch. Their gradients, activations and
+    metrics live in the graph's private pool. A replay copies the next
+    superbatch into the static input and runs the K steps with one launch.
+
+    The warp's backward adds with atomics, so two replays of the same steps
+    are not bit-identical."""
+
+    WARMUP = 3
+
+    def __init__(self, step: Callable[[Batch], Batch], model: nn.Module, optimizer: torch.optim.Optimizer,
+                 stacked: Batch):
+        if not all(g.get("capturable") for g in optimizer.param_groups):
+            raise ValueError("a CUDA graph of train steps needs a capturable optimizer (create_train_state "
+                             "on the card)")
+        self.layout, self.steps = _layout(stacked), _group_len(stacked)
+        self.inputs = {k: v.clone() for k, v in stacked.items()}
+        rows = [{k: v[i] for k, v in self.inputs.items()} for i in range(_group_len(stacked))]
+        saved = _snapshot(model, optimizer)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(self.WARMUP):
+                step(rows[i % len(rows)])
+        torch.cuda.current_stream().wait_stream(side)
+        _restore(saved, optimizer)
+        optimizer.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the prefetch thread may copy the next batch meanwhile
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            outs = [step(r) for r in rows]
+            self.metrics = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def __call__(self, stacked: Batch) -> Batch:
+        for k, v in self.inputs.items():
+            v.copy_(stacked[k], non_blocking=True)
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.metrics.items()}
+
+
+def _layout(stacked: Batch):
+    """The keys, per-step shapes and dtypes of a stacked batch."""
+    return tuple(sorted((k, tuple(v.shape[1:]), v.dtype) for k, v in stacked.items()))
+
+
+def _snapshot(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """(tensor, its copy) of every parameter, buffer and optimizer state
+    tensor, and the parameters that had no optimizer state yet."""
+    state = [t for p in model.parameters() for t in optimizer.state.get(p, {}).values()
+             if isinstance(t, torch.Tensor)]
+    tensors = list(model.parameters()) + list(model.buffers()) + state
+    fresh = [p for p in model.parameters() if not optimizer.state.get(p)]
+    return [(t, t.detach().clone()) for t in tensors], fresh
+
+
+@torch.no_grad()
+def _restore(saved, optimizer: torch.optim.Optimizer) -> None:
+    """Put the tensors of :func:`_snapshot` back in place. Adam's state that
+    the warm-up created starts at zero (step 0, zero moments), which is the
+    state Adam creates on its first step."""
+    copies, fresh = saved
+    for t, c in copies:
+        t.copy_(c)
+    for p in fresh:
+        for t in optimizer.state.get(p, {}).values():
+            if isinstance(t, torch.Tensor):
+                t.zero_()
+
+
+def multi_step(step: Callable[[Batch], Batch], model: nn.Module, optimizer: torch.optim.Optimizer
+               ) -> Callable[[Batch], Batch]:
+    """K optimizer steps of ``step`` per call over a stacked batch (every
+    leaf with a leading K axis): the same K sequential steps, parameters,
+    Adam's state and BatchNorm statistics threaded through, metrics stacked
+    (K,) per key.
+
+    On the card the first call captures its K steps as one CUDA graph
+    (:class:`_StepGraph`) and every call replays it; a failed capture
+    raises. A group of another length (an epoch's shorter tail) runs as
+    single steps. On the CPU the steps run one by one."""
+    graphs = []
+
+    def run(stacked: Batch) -> Batch:
+        if next(iter(stacked.values())).device.type != "cuda":
+            return _run_each(step, stacked)
+        if not graphs:
+            graphs.append(_StepGraph(step, model, optimizer, stacked))
+        g = graphs[0]
+        if _layout(stacked) != g.layout:
+            raise ValueError(f"a batch of another layout than the captured steps': {_layout(stacked)} vs {g.layout}")
+        return g(stacked) if _group_len(stacked) == g.steps else _run_each(step, stacked)
+
+    return run
+
+
+def make_train_step_multi(
+    model: nn.Module,
+    config: Config,
+    optimizer: torch.optim.Optimizer,
+    teacher: Optional[nn.Module] = None,
+    kd_flag: bool = False,
+    kd_from_cache: Optional[Sequence[torch.Tensor]] = None,
+) -> Callable[[Batch], Batch]:
+    """K steps of :func:`make_train_step` per dispatch over a stacked batch
+    (:func:`stack_host_batches`, then :func:`batch_to_device`), as the JAX
+    package's ``lax.scan`` of the step: on the card one CUDA graph of the K
+    steps (:func:`multi_step`). Returns the metrics stacked (K,) per key."""
+    step = make_train_step(model, config, optimizer, teacher=teacher, kd_flag=kd_flag,
+                           kd_from_cache=kd_from_cache)
+    return multi_step(step, model, optimizer)
 
 
 def teacher_feat_bytes(config: Config, n_frames: int, dtype: torch.dtype = torch.bfloat16,

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 
 from disconet_tpu_torch.config import Config
-from disconet_tpu_torch.training.det_module import Batch, create_train_state, get_bev
+from disconet_tpu_torch.models.backbone import remat_stages
+from disconet_tpu_torch.training.det_module import Batch, create_train_state, get_bev, multi_step
 
 # the same optimizer as detection; the name reads as the seg CLI's
 create_seg_train_state = create_train_state
@@ -41,11 +42,13 @@ def make_seg_train_step(model: nn.Module, config: Config, optimizer: torch.optim
                         ) -> Callable[[Batch], Batch]:
     """The seg training step: the training-mode forward (BatchNorm on batch
     statistics, running statistics updated), the loss, backward and one
-    Adam step. Returns ``loss`` and ``acc`` as 0-dim device tensors."""
+    Adam step. Returns ``loss`` and ``acc`` as 0-dim device tensors.
+    ``config.train_remat`` rematerializes the stages, as the det step."""
 
     def train_step(batch: Batch) -> Batch:
         model.train()
-        out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
+        with remat_stages(config.train_remat):
+            out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
         loss, metrics = _seg_loss(out, batch)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -53,6 +56,14 @@ def make_seg_train_step(model: nn.Module, config: Config, optimizer: torch.optim
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_seg_train_step_multi(model: nn.Module, config: Config, optimizer: torch.optim.Optimizer
+                              ) -> Callable[[Batch], Batch]:
+    """K seg steps per dispatch over a stacked batch, the seg counterpart of
+    ``det_module.make_train_step_multi`` (one CUDA graph of the K steps on
+    the card); metrics stacked (K,) per key."""
+    return multi_step(make_seg_train_step(model, config, optimizer), model, optimizer)
 
 
 def make_seg_predict_step(model: nn.Module, config: Config) -> Callable[[Batch], torch.Tensor]:

@@ -6,13 +6,14 @@ predict step on a JAX-generated synthetic dataset (weights through
 ``state_dict_from_flax``), binary and 4-class: keep masks equal, boxes and
 scores within 1e-4. Within the port: a KD step from a float32 cache equals
 the re-forward step (rtol 1e-6) and one from a bf16 cache stays within
-``BF16_CACHE_RTOL``; ``prefetch_to_device`` keeps order, passes errors on and
+``BF16_CACHE_RTOL`` of it and equals (rtol 1e-6) the re-forward step whose
+teacher taps are rounded to bf16; ``prefetch_to_device`` keeps order, passes errors on and
 joins its worker on early close; ``pipeline_one_deep`` dispatches a batch
 ahead. The CLIs run in-process with ``--device
 cpu``: train, auto-resume, evaluate from ``ckpt/``, from a ``.pth`` and from
 the log directory with ``--tracking`` and a padded tail batch, ``--save_best``,
 the KD cycle (upperbound teacher, then DiscoNet from the cache), late fusion,
-pose noise and the flags that are not ported. A ``gpu`` test runs the cycle
+pose noise and the mesh flags, which are not ported. A ``gpu`` test runs the cycle
 on the card; a ``slow`` one holds the port's ``test_codet`` table against the
 JAX CLI's on the same ``.pth``. The JAX package is imported inside the tests
 that compare with it, so that the ``gpu`` test collects on a machine without
@@ -34,7 +35,6 @@ from disconet_tpu_torch.checkpoint import load_state_dict_strict, restore_or_die
 from disconet_tpu_torch.config import Config, default_fusion_layer
 from disconet_tpu_torch.data.dataset import V2XSimDet, collate_det
 from disconet_tpu_torch.tools.det import create_data_det, test_codet, train_codet
-from disconet_tpu_torch.tools.seg import create_data_seg
 from disconet_tpu_torch.training import (
     batch_to_device,
     create_train_state,
@@ -107,13 +107,41 @@ class _FakeDataset:
         return self.items[i]
 
 
+class _RoundedTaps(torch.nn.Module):
+    """A teacher whose KD taps come back rounded to bf16 (held in fp32): the
+    values a bf16 cache table holds."""
+
+    def __init__(self, teacher):
+        super().__init__()
+        self.teacher = teacher
+
+    def forward(self, *args):
+        out = self.teacher(*args)
+        return {**out, "kd_feats": [t.to(torch.bfloat16).float() for t in out["kd_feats"]]}
+
+
 def test_kd_cache_step_matches_reforward():
+    """A KD step from a float32 cache equals the re-forward step; one from a
+    bf16 cache equals the re-forward step whose teacher taps are rounded to
+    bf16 (so the step read the bf16 table) and differs from the float32 one.
+
+    The teacher's BatchNorm running statistics are first set from its own
+    batch statistics (training-mode forwards at momentum 0.9), so its
+    eval-mode taps are of unit scale: with the identity statistics of a
+    fresh initialization they are ~1e-2 next to the student's batch-normed
+    taps, and rounding them moves the KD loss by less than a float32 ulp."""
     from disconet_tpu_torch import example_train_batch
 
     A = 2
     cfg = tiny_config(32, max_agents=A, **F32)
     ds = _FakeDataset(cfg, 3, A)
     teacher = build_model("teacher", cfg, device="cpu", seed=1)
+    calib = torch.from_numpy(np.stack([ds[i]["bev_teacher"] for i in range(3)]))
+    teacher.train()
+    with torch.no_grad():
+        for _ in range(40):
+            teacher(calib, None, torch.ones((3, A), dtype=torch.bool))
+    teacher.eval()
     tables = precompute_teacher_feats(teacher, ds, cfg, batch_size=2, dtype=torch.float32, num_workers=1)
     assert all(t.shape[0] == 4 and t.dtype == torch.float32 for t in tables)  # padded to whole batches
     assert sum(t.numel() * 4 for t in tables) == teacher_feat_bytes(cfg, 3, torch.float32, batch_size=2)
@@ -140,6 +168,9 @@ def test_kd_cache_step_matches_reforward():
     for k in ("kd_loss", "loss"):
         rel = abs(float(m_bf[k]) - float(m_re[k])) / abs(float(m_re[k]))
         assert 0 < rel < BF16_CACHE_RTOL, (k, rel)
+    m_rounded = first_step(teacher=_RoundedTaps(teacher))
+    for k in m_rounded:
+        np.testing.assert_allclose(float(m_bf[k]), float(m_rounded[k]), rtol=1e-6, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -384,16 +415,11 @@ def test_cli_kd_cycle_late_fusion_and_pose_noise(capsys, cli_data, tmp_path):
 
 
 @pytest.mark.parametrize("main,argv,needle", [
-    (train_codet.main, ["--remat", "1"], "train_remat"),
-    (train_codet.main, ["--steps_per_dispatch", "2"], "make_train_step_multi"),
     (train_codet.main, ["--mesh_agent", "2"], "item 16"),
     (train_codet.main, ["--mesh_spatial", "2"], "item 16"),
-    (create_data_seg.main, ["--mode", "nuscenes"], "item 11"),
-    (create_data_det.main, ["--mode", "nuscenes"], "item 11"),
 ])
 def test_cli_refuses_what_is_not_ported(cli_data, tmp_path, main, argv, needle):
-    extra = [] if main in (create_data_det.main, create_data_seg.main) else [
-        "--grid", "32", "--batch", "2", "--device", "cpu", "--logpath", str(tmp_path)]
+    extra = ["--grid", "32", "--batch", "2", "--device", "cpu", "--logpath", str(tmp_path)]
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1, .*{needle}"):
         main(["--data", cli_data, *extra, *argv])
 

@@ -288,6 +288,20 @@ def test_late_fusion_matches_jax():
     _equal(tlate.nms_np(boxes, np.array([0.9, 0.8, 0.7]), 0.3), jlate.nms_np(boxes, np.array([0.9, 0.8, 0.7]), 0.3))
 
 
+@pytest.mark.parametrize("thr", [0.0, 0.01, 0.3])
+def test_nms_np_matches_jax_on_many_boxes(thr):
+    """The port's NMS skips pairs whose circumscribed circles do not meet;
+    on 400 boxes, clustered and spread, it keeps what JAX's full IoU matrix
+    keeps."""
+    rng = np.random.default_rng(9)
+    for spread in (3.0, 30.0):
+        n = 400
+        boxes = np.stack([rng.uniform(-spread, spread, n), rng.uniform(-spread, spread, n), rng.uniform(1, 2.5, n),
+                          rng.uniform(2, 5, n), rng.uniform(-np.pi, np.pi, n)], -1)
+        scores = rng.random(n)
+        _equal(tlate.nms_np(boxes, scores, thr), jlate.nms_np(boxes, scores, thr))
+
+
 @pytest.mark.parametrize("shape", [(2, 3, 3, 4, 4), (3, 3, 4, 4), (2, 2, 6, 6, 4, 4)])
 def test_pose_noise_matches_jax(shape):
     rng = np.random.default_rng(5)

@@ -47,6 +47,7 @@ def test_tiny_protocol_writes_resumes_and_summarizes(tmp_path, capsys):
         prov = cells[key]["prov"]
         assert prov["card"] == "cpu" and prov["sha"] == "abc1234" and len(prov["source_sha1"]) == 12
         assert prov["nepoch"] == 1 and prov["ckpt"] == "final" and prov["train_s"] > 0 and prov["wall_s"] > 0
+        assert prov["steps_per_dispatch"] == 8  # the JAX matrix's
     assert cells["disco/seed0"]["prov"]["layer"] == 3
     assert set(cells["disco+track/seed0"]) == set(jax_cells["disco+track/seed0"]) | {"prov"}
     assert {(r["config"], r["metric"]) for r in rows} >= {("disco", "mAP@0.7"), ("disco+track", "MOTA")}

@@ -46,7 +46,7 @@ from disconet_tpu_torch.models.backbone import SegHead
 from disconet_tpu_torch.models.unet import UNet
 from disconet_tpu_torch.tools.det import test_codet as det_test, train_codet as det_train
 from disconet_tpu_torch.tools.seg import create_data_seg, test_codet, train_codet
-from disconet_tpu_torch.training import batch_to_device
+from disconet_tpu_torch.training import batch_to_device, get_bev
 from disconet_tpu_torch.training.seg_module import (
     _seg_loss,
     create_seg_train_state,
@@ -177,29 +177,69 @@ def seg_step(tmp_path_factory):
             out, mut = jm.apply({"params": p, "batch_stats": stats}, jb["bev"], jb["trans"], jb["agent_mask"],
                                 train=True, mutable=["batch_stats"])
             loss, metrics = jseg._seg_loss(out, jb)
-            return loss, metrics
+            return loss, (metrics, out["seg"])
 
         return jax.value_and_grad(loss_fn, has_aux=True)(params)
 
     ref = {}
     for pad, batch in BATCHES.items():
-        (_, metrics), g = grads(v["params"], v["batch_stats"], _jax_batch(batch))
-        ref[pad] = types.SimpleNamespace(metrics={k: float(x) for k, x in metrics.items()}, grads=g)
+        (_, (metrics, logits)), g = grads(v["params"], v["batch_stats"], _jax_batch(batch))
+        ref[pad] = types.SimpleNamespace(metrics={k: float(x) for k, x in metrics.items()}, grads=g,
+                                         logits=np.asarray(logits))
     return types.SimpleNamespace(variables=v, ref=ref)
+
+
+# the largest |port - JAX| training-mode logit the step may show; zero
+# padding reads ~5.4e-4 (the two BatchNorm variances over the all-zero rows)
+SEG_LOGIT_LIMIT = {"random": 1e-4, "zero": 1e-3}
 
 
 @pytest.mark.parametrize("pad", ["random", "zero"])
 def test_seg_train_step_matches_jax(seg_step, pad):
+    """The step's loss, accuracy and gradients against JAX's.
+
+    The accuracy is compared cell by cell through the training-mode logits.
+    A present cell is a tie where JAX's two best logits lie closer than
+    twice the largest |port - JAX| logit difference of the batch: either
+    package may pick either class there. Random padding has 3 ties (logits
+    part by up to 8.7e-5) and no flip, and the step's accuracy equals JAX's
+    within 1e-6. Zero padding has 6 ties (logits part by up to 5.4e-4: the
+    port's two-pass BatchNorm variance against flax's E[x^2] - E[x]^2 over
+    the all-zero rows) and one of them flips: cell (0, 0, 10, 22), where
+    JAX's logits of classes 1 and 2 part by 4.6e-5. That flip reads 0.13340
+    against JAX's 0.13320; these are near ties of float32 logits, not exact
+    ties. Away from the ties the argmax is equal in every cell and the
+    accuracy equals JAX's within 1e-6, on both paddings."""
     tcfg = _cfgs("unet")[1]
     v = seg_step.variables
-    model = load_state_dict_strict(build_model("disco", tcfg, layer=LAYER, device="cpu", task="seg"),
-                                   state_dict_from_flax(v["params"], v["batch_stats"]))
+    model, twin = (load_state_dict_strict(build_model("disco", tcfg, layer=LAYER, device="cpu", task="seg"),
+                                          state_dict_from_flax(v["params"], v["batch_stats"])) for _ in range(2))
+    dev = batch_to_device(BATCHES[pad], "cpu")
+    twin.train()
+    with torch.no_grad():  # the step's own forward: the same weights and batch
+        logits = twin(get_bev(dev, "bev", tcfg), dev["trans"], dev["agent_mask"])["seg"].numpy()
     step = make_seg_train_step(model, tcfg, create_seg_train_state(model))
-    got = {k: float(x) for k, x in step(batch_to_device(BATCHES[pad], "cpu")).items()}
+    got = {k: float(x) for k, x in step(dev).items()}
     ref = seg_step.ref[pad]
     assert set(got) == {"loss", "acc"}
     np.testing.assert_allclose(got["loss"], ref.metrics["loss"], rtol=1e-4 if pad == "random" else ZERO_PAD_METRIC_RTOL)
-    assert got["acc"] == pytest.approx(ref.metrics["acc"], abs=1e-6)
+
+    label = BATCHES[pad]["seg_label"]
+    present = np.broadcast_to(MASK[:, :, None, None], label.shape)
+    diff = np.abs(logits - ref.logits).max()
+    assert diff < SEG_LOGIT_LIMIT[pad], diff
+    top2 = np.sort(ref.logits, axis=-1)[..., -2:]
+    tie = (top2[..., 1] - top2[..., 0] < 2 * diff) & present
+    away = present & ~tie
+    assert int(tie.sum()) == {"random": 3, "zero": 6}[pad], np.argwhere(tie)
+    assert np.array_equal(logits.argmax(-1)[away], ref.logits.argmax(-1)[away])
+    port_hit = logits.argmax(-1) == label
+    jax_hit = ref.logits.argmax(-1) == label
+    assert got["acc"] == pytest.approx(port_hit[present].sum() / present.sum(), abs=1e-6)
+    assert ref.metrics["acc"] == pytest.approx(jax_hit[present].sum() / present.sum(), abs=1e-6)
+    assert port_hit[away].mean() == pytest.approx(jax_hit[away].mean(), abs=1e-6)
+    if pad == "random":  # no tie flips
+        assert got["acc"] == pytest.approx(ref.metrics["acc"], abs=1e-6)
     want = {k: t.numpy() for k, t in state_dict_from_flax(ref.grads).items()}
     num, den = {}, {}
     for k, p in model.named_parameters():
@@ -288,16 +328,6 @@ def test_seg_cli_cycle_on_cpu(capsys, seg_data, tmp_path):
     assert [r[0] for r in rows] == test_codet.CLASS_NAMES + ["mIoU"]
     assert np.isfinite(res["miou"]) and float(rows[-1][1]) == pytest.approx(res["miou"], abs=1e-4)
     assert set(res) == {"iou", "miou", "scenes_per_s"}
-
-
-@pytest.mark.parametrize("main,argv,needle", [
-    (train_codet.main, ["--remat", "1"], "item 10"),
-    (train_codet.main, ["--steps_per_dispatch", "2"], "item 10"),
-])
-def test_seg_cli_refuses_what_is_not_ported(seg_data, tmp_path, main, argv, needle):
-    extra = ["--grid", "32", "--device", "cpu", "--logpath", str(tmp_path)]
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1, {needle}"):
-        main(["--data", seg_data, *extra, *argv])
 
 
 @pytest.mark.parametrize("com,flags", [("v2v", ["--gru_rounds", "2"]), ("who2com", ["--warp_flag", "0"])])

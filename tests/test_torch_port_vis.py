@@ -212,14 +212,14 @@ def test_warp_dtype_float32_forward_tracks_jax():
         port = load_state_dict_strict(build_model("disco", tiny_config(32, head_raw_dtype="float32", warp_dtype=wd),
                                                   device="cpu"), sd)
         port.eval()
-        encode_and_warp = port.encode_and_warp
+        warp = port.warp
 
         def spy(*a, _wd=wd, **k):
-            out = encode_and_warp(*a, **k)
-            dtypes[_wd] = out[2].dtype
+            out = warp(*a, **k)
+            dtypes[_wd] = out.dtype
             return out
 
-        port.encode_and_warp = spy
+        port.warp = spy
         with torch.no_grad():
             got[wd] = port(*(torch.from_numpy(x) for x in (bev, trans, mask)), store_bf16=True)["head_raw"].numpy()
     assert dtypes == {"bfloat16": torch.bfloat16, "float32": torch.float32}
