@@ -108,6 +108,26 @@ Phases, each printing its own line; any failure exits non-zero:
    counts the dataset's ``#gt``; the IoU kernel ran on every predict
    batch). ``create_data_det --mode nuscenes`` exits naming
    nuscenes-devkit, which the card's machine lacks.
+13. data and agent parallelism on the one card: DiscoNet's float32 KD step
+   (teacher re-forward) and the predict step at the full ``Config()`` width,
+   batch 4 x 6 agents, on ``data`` 2 (2 processes) and ``data`` 2 x
+   ``agent`` 2 (4 processes) in a ``gloo`` group with CUDA tensors (nccl
+   refuses two ranks on one card), and on a world of 1 over ``nccl``, each
+   rank against the one-process step on the card: the losses within 1e-5,
+   ``grad_norm`` within 1e-4, each group of layers' gradients within 1e-2
+   (relative L2) and the running statistics within 1e-5, the CPU tests'
+   bounds; predict keep counts equal and the kept scores within 2e-3. The
+   one-process step run twice prints the card's own spread (the warp's
+   atomics). Then ``train_codet --com disco --mesh_agent 2`` under
+   ``torchrun`` (gloo, both ranks on the card) for an epoch of 1 scene x 4
+   frames of synthetic data at full width, auto-resumed for a second.
+
+Phases 7, 9 and 12 also time their bf16 steps with the parent's arithmetic
+(every conv result rounded to bf16, patched in) and with the repair
+(operands rounded, fp32 results) in turns, printing ``precision A/B`` lines
+with the card's name and power limit: the KD step with the teacher
+re-forward, the KD step from the cache, the K-step graphs of KD and UNet seg
+steps and the 64-grid quality step in a graph of 8.
 
 Prints the kernels' JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -209,6 +229,77 @@ def _device_ms(fn, iters=20, warmup=3):
     return sum(per_name.values()), per_name
 
 
+# the card's "name, power.limit" (phase 1), printed beside every A/B reading
+_SMI = ""
+
+
+def _parent_conv(x, w, stride, padding):
+    """The parent's bf16 conv: cuDNN's bf16 conv, its result rounded to bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    return F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), stride=stride, padding=padding).float()
+
+
+def _parent_round(x):
+    """The parent's operand rounding, whose backward rounded the cotangent."""
+    import torch
+
+    return x.to(torch.bfloat16).float()
+
+
+@contextlib.contextmanager
+def _arithmetic(arm: str):
+    """``arm`` "parent": the bf16 arithmetic before the precision repair
+    (every conv result rounded to bf16, the dots' cotangents rounded),
+    patched into ``models/backbone.py`` for a before/after timing;
+    "repair": the port's own (operands rounded, fp32 results)."""
+    from unittest import mock
+
+    from disconet_tpu_torch.models import backbone
+
+    with contextlib.ExitStack() as stack:
+        if arm == "parent":
+            stack.enter_context(mock.patch.object(backbone, "conv2d_bf16_operands", _parent_conv))
+            stack.enter_context(mock.patch.object(backbone, "_round_bf16", _parent_round))
+        yield
+
+
+def _precision_ab(label, build, steps_per_call=1, calls=5, windows=4):
+    """One call of ``build()`` (under each arithmetic) -> a function that runs
+    ``steps_per_call`` train steps; both warmed up (a K-step graph captures
+    under its arithmetic), then timed in turns (parent, repair, repair,
+    parent, ...), ``windows`` windows of ``calls`` calls each with CUDA
+    events. Prints and returns the medians, ms a step."""
+    import statistics
+
+    import torch
+
+    fns = {}
+    for arm in ("parent", "repair"):
+        with _arithmetic(arm):
+            fns[arm] = build()
+            for _ in range(2):
+                fns[arm]()
+    torch.cuda.synchronize()
+    times = {"parent": [], "repair": []}
+    for i in range(windows):
+        for arm in ("parent", "repair") if i % 2 == 0 else ("repair", "parent"):
+            with _arithmetic(arm):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(calls):
+                    fns[arm]()
+                end.record()
+                torch.cuda.synchronize()
+            times[arm].append(start.elapsed_time(end) / (calls * steps_per_call))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"precision A/B, {label}: parent's arithmetic {med['parent']:.3f} ms, the repair {med['repair']:.3f} ms "
+          f"a step ({100 * (med['repair'] / med['parent'] - 1):+.1f}%; windows "
+          + "; ".join(f"{k} " + ", ".join(f"{w:.3f}" for w in v) for k, v in times.items()) + f"); {_SMI}")
+    return med
+
+
 def _points(cfg, rng, batch, agents, n):
     import numpy as np
 
@@ -258,6 +349,8 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    global _SMI
+    _SMI = smi
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
@@ -520,6 +613,13 @@ def main(argv) -> int:
     del plain, plain_step
     print(f"train breakdown ms: plain step (KD off) {plain_ms:.3f}; KD step with teacher re-forward "
           f"{train_ms:.3f} (+{train_ms - plain_ms:.3f}); teacher forward alone {teacher_ms:.3f}")
+
+    def kd_reforward():
+        s, t = build_model("disco", cfg, seed=0, kd_flag=True), build_model("teacher", cfg, seed=1)
+        step = make_train_step(s, cfg, create_train_state(s), teacher=t, kd_flag=True)
+        return lambda: step(tb)
+
+    _precision_ab("KD step with teacher re-forward (phase 7)", kd_reforward)
     if "--profile" in argv:
         from torch.profiler import ProfilerActivity, profile
 
@@ -568,6 +668,9 @@ def main(argv) -> int:
     other = _phase10(cfg, host7, tb, (pts_d, trans_d, amask_d, anchors))
     packed = _phase11(cfg, model, (pts_d, trans_d, amask_d, anchors))
     kstep = _phase12(cfg, host7, teacher)
+    del teacher, kd_step, student, tb
+    torch.cuda.empty_cache()
+    _phase13(cfg)
 
     kernels = [
         {
@@ -828,6 +931,14 @@ def _phase9(cfg, host7, tb, kd_step, teacher):
             for name, step in (("re-forward", kd_step), ("cache", cache_step))}
     print("cli KD step device ms (torch.profiler, summed CUDA time of one step): "
           + ", ".join(f"{k} {v:.3f} ({100 * v / med[k]:.1f}% of {med[k]:.3f} ms)" for k, v in busy.items()))
+    del cached, cache_step
+
+    def kd_cache():
+        s = build_model("disco", cfg, seed=0, kd_flag=True)
+        step = make_train_step(s, cfg, create_train_state(s), kd_flag=True, kd_from_cache=full)
+        return lambda: step(tb)
+
+    _precision_ab("KD step from the cache (phase 9)", kd_cache)
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s, {data_s:.1f} s of it writing the data")
     return {"launches": launches}
 
@@ -1230,7 +1341,7 @@ def _phase12(cfg, host7, teacher):
     import numpy as np
     import torch
 
-    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch import build_model, example_train_batch, tiny_config
     from disconet_tpu_torch.data.dataset import V2XSimDet
     from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
     from disconet_tpu_torch.ops.voxelize import voxelize_occupy
@@ -1250,8 +1361,27 @@ def _phase12(cfg, host7, teacher):
         "kd cache step", lambda: build_model("disco", cfg, seed=0, kd_flag=True),
         lambda m: make_train_step(m, cfg, create_train_state(m), kd_flag=True, kd_from_cache=tables),
         lambda m: make_train_step_multi(m, cfg, create_train_state(m), kd_flag=True, kd_from_cache=tables), tb, sb)
+
+    def kd_graph():
+        m = build_model("disco", cfg, seed=0, kd_flag=True)
+        multi = make_train_step_multi(m, cfg, create_train_state(m), kd_flag=True, kd_from_cache=tables)
+        return lambda: multi(sb)
+
+    _precision_ab(f"KD step from the cache, one graph of {K_STEPS} (phase 12)", kd_graph, K_STEPS, calls=2)
     del tables, tb, sb
     torch.cuda.empty_cache()
+
+    # the quality protocol's step: DiscoNet at the 64-grid, batch 4 x 6, one graph of 8
+    q_cfg = tiny_config(64)
+    q_sb = batch_to_device(_superbatch(example_train_batch(q_cfg, BATCH, AGENTS, seed=6), K_STEPS))
+
+    def quality_graph():
+        m = build_model("disco", q_cfg, seed=0)
+        multi = make_train_step_multi(m, q_cfg, create_train_state(m))
+        return lambda: multi(q_sb)
+
+    _precision_ab(f"64-grid quality step, one graph of {K_STEPS} (phase 12)", quality_graph, K_STEPS, calls=10)
+    del q_sb
 
     # 2. the seg step on the UNet
     seg_host = {k: host7[k] for k in ("bev", "trans", "agent_mask")}
@@ -1261,6 +1391,13 @@ def _phase12(cfg, host7, teacher):
         "seg step", lambda: build_model("disco", cfg, seed=0, task="seg"),
         lambda m: make_seg_train_step(m, cfg, create_train_state(m)),
         lambda m: make_seg_train_step_multi(m, cfg, create_train_state(m)), tb, sb)
+
+    def seg_graph():
+        m = build_model("disco", cfg, seed=0, task="seg")
+        multi = make_seg_train_step_multi(m, cfg, create_train_state(m))
+        return lambda: multi(sb)
+
+    _precision_ab(f"UNet seg step, one graph of {K_STEPS} (phase 12)", seg_graph, K_STEPS, calls=2)
     del tb, sb
     torch.cuda.empty_cache()
 
@@ -1368,6 +1505,230 @@ def _phase12(cfg, host7, teacher):
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "kd": kd, "seg": seg}
+
+
+# phase 13: the sharded steps on the card against the one-process step,
+# float32 at full width, at the CPU tests' bounds
+# (tests/test_torch_port_parallel.py): losses 1e-5, grad_norm 1e-4, each
+# group of layers' gradients 1e-2 (relative L2), running statistics 1e-5.
+# The mesh path on a world of one rank (nccl) read 2.7e-3 in the gradients
+# and the sharded steps 2.7e-3 to 2.9e-3 on the H100 (PERF.md): the
+# composed BatchNorm of the mesh path against F.batch_norm's
+P13_METRIC_RTOL, P13_GRAD_NORM_RTOL, P13_GRAD_REL_L2, P13_STATS_ATOL = 1e-5, 1e-4, 1e-2, 1e-5
+P13_RUNS = (("data=2", "gloo", (2, 1, 1)), ("data=2 x agent=2", "gloo", (2, 2, 1)), ("world 1", "nccl", (1, 1, 1)))
+P13_GROUPS = {"encoder": ("stpn.stages_",), "fusion": ("weight_net.",),
+              "decoder": ("stpn.dec_", "stpn.head_conv."), "heads": ("heads.",)}
+
+
+def _p13_config():
+    from disconet_tpu_torch import Config
+
+    return Config(compute_dtype="float32", head_raw_dtype="float32")
+
+
+def _p13_step(host, mesh=None):
+    """DiscoNet's KD step (teacher re-forward) and the predict step of fresh
+    seeded models, on ``mesh``'s slice of ``host`` (the whole batch without
+    one) -> metrics, gradients, running statistics, predict outputs and the
+    step's seconds, on the host."""
+    import torch
+
+    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch.parallel import shard_batch
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_predict_step, make_train_step
+
+    cfg = _p13_config()
+    batch = batch_to_device(host) if mesh is None else shard_batch(host, mesh)
+    student, teacher = build_model("disco", cfg, seed=0, kd_flag=True), build_model("teacher", cfg, seed=1)
+    step = make_train_step(student, cfg, create_train_state(student), teacher=teacher, kd_flag=True, mesh=mesh)
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    model = build_model("disco", cfg, seed=0)
+    predict = make_predict_step(model, cfg, mesh)(batch)
+    return {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {k: p.grad.cpu() for k, p in student.named_parameters()},
+        "stats": {k: v.cpu() for k, v in student.state_dict().items() if k.endswith(("running_mean", "running_var"))},
+        "predict": [t.cpu() for t in predict[:3]],
+        "coords": None if mesh is None else mesh.coords,
+        "step_s": step_s,
+    }
+
+
+def _p13_rank(rank, world, port, backend, shape, host, path):
+    """A rank of phase 13's group: every rank on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from disconet_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    try:
+        torch.save(_p13_step(host, make_mesh(*shape, device="cuda:0")), f"{path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _p13_spawn(backend, shape, host, work):
+    """Phase 13's ranks of ``shape`` on the card -> their results."""
+    import math
+    import multiprocessing
+    import socket
+
+    import torch
+
+    world = math.prod(shape)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    path = os.path.join(work, f"{backend}_{world}")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_p13_rank, args=(r, world, port, backend, shape, host, path)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"phase 13 {backend} {shape}: rank exit codes {codes}")
+    return [torch.load(f"{path}.{r}", weights_only=False) for r in range(world)]
+
+
+def _group_distances(got, want):
+    """{group: relative L2 distance of the group's gradients taken together}."""
+    import torch
+
+    out = {}
+    for g, prefixes in P13_GROUPS.items():
+        keys = [k for k in want if k.startswith(prefixes)]
+        num = torch.sqrt(sum(((got[k] - want[k]) ** 2).sum() for k in keys))
+        out[g] = float(num / torch.sqrt(sum((want[k] ** 2).sum() for k in keys)))
+    return out
+
+
+def _detections_equivalent(want, got, score_atol=2e-3, box_atol=5e-2, tie_frac=0.15):
+    """``tests/test_parallel.py``'s equivalence of two predict outputs:
+    equal keep counts per (scene, agent), the kept scores' spectra within
+    ``score_atol``, nearly every kept box matched within ``box_atol``.
+    Returns (kept boxes, unmatched)."""
+    import numpy as np
+
+    (b1, s1, k1), (b2, s2, k2) = ([np.asarray(t) for t in x] for x in (want, got))
+    if not np.array_equal(k1.sum(-1), k2.sum(-1)):
+        raise AssertionError(f"keep counts differ: {k1.sum(-1)} vs {k2.sum(-1)}")
+    total = unmatched = 0
+    for bi in range(k1.shape[0]):
+        for ai in range(k1.shape[1]):
+            x1, x2 = b1[bi, ai][k1[bi, ai]], b2[bi, ai][k2[bi, ai]]
+            d_s = np.abs(np.sort(s1[bi, ai][k1[bi, ai]]) - np.sort(s2[bi, ai][k2[bi, ai]]))
+            if d_s.size and d_s.max() > score_atol:
+                raise AssertionError(f"score spectra differ by {d_s.max()} at scene {bi} agent {ai}")
+            if len(x1):
+                d = np.abs(x1[:, None, :] - x2[None, :, :]).max(-1)
+                unmatched += int((d.min(axis=1) > box_atol).sum())
+                total += len(x1)
+    if total == 0 or unmatched > tie_frac * total:
+        raise AssertionError(f"{unmatched}/{total} kept boxes unmatched")
+    return total, unmatched
+
+
+def _phase13(cfg):
+    """Data and agent parallelism on the one card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from disconet_tpu_torch import example_train_batch
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="p13_", dir=build)
+    try:
+        host = example_train_batch(_p13_config(), BATCH, AGENTS, seed=5)
+        ref, again = _p13_step(host), _p13_step(host)
+        torch.cuda.empty_cache()
+        floor = _group_distances(again["grads"], ref["grads"])
+        print("parallel: the one-process float32 KD step twice on the card (the warp's atomics), gradient "
+              "distance by group " + ", ".join(f"{k} {v:.2e}" for k, v in floor.items())
+              + f"; a step {ref['step_s'] * 1e3:.1f} ms with its first-call work")
+        for name, backend, shape in P13_RUNS:
+            ranks = _p13_spawn(backend, shape, host, work)
+            worst = {"metric": 0.0, "grad_norm": 0.0, "group": 0.0, "stats": 0.0}
+            kept = unmatched = 0
+            for res in ranks:
+                for k, v in ref["metrics"].items():
+                    rel = abs(res["metrics"][k] - v) / abs(v)
+                    key = "grad_norm" if k == "grad_norm" else "metric"
+                    worst[key] = max(worst[key], rel)
+                worst["group"] = max(worst["group"], max(_group_distances(res["grads"], ref["grads"]).values()))
+                worst["stats"] = max(worst["stats"], max(float((res["stats"][k] - v).abs().max())
+                                                         for k, v in ref["stats"].items()))
+                c = res["coords"]
+                b, a = res["predict"][0].shape[:2]
+                want = [t[c["data"] * b:(c["data"] + 1) * b, c["agent"] * a:(c["agent"] + 1) * a]
+                        for t in ref["predict"]]
+                n, u = _detections_equivalent(want, res["predict"])
+                kept, unmatched = kept + n, unmatched + u
+            print(f"parallel {name} ({backend}, {len(ranks)} rank(s) on the one card): losses {worst['metric']:.1e} "
+                  f"(limit {P13_METRIC_RTOL}), grad_norm {worst['grad_norm']:.1e} ({P13_GRAD_NORM_RTOL}), "
+                  f"gradients {worst['group']:.2e} ({P13_GRAD_REL_L2}), statistics {worst['stats']:.1e} "
+                  f"({P13_STATS_ATOL}) from one process; predict keep counts equal, {unmatched}/{kept} kept boxes "
+                  f"unmatched; a rank's step {max(r['step_s'] for r in ranks) * 1e3:.1f} ms with its first-call work")
+            if (worst["metric"] > P13_METRIC_RTOL or worst["grad_norm"] > P13_GRAD_NORM_RTOL
+                    or worst["group"] > P13_GRAD_REL_L2 or worst["stats"] > P13_STATS_ATOL):
+                raise AssertionError(f"parallel {name}: the sharded step parts from one process: {worst}")
+        _p13_torchrun(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _p13_torchrun(work):
+    """``train_codet --com disco --mesh_agent 2`` under ``torchrun`` on the
+    card (gloo, both ranks on it) for an epoch of synthetic data at full
+    width, then auto-resumed for a second."""
+    import socket
+
+    from disconet_tpu_torch.tools.det import create_data_det
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    _cli(create_data_det.main, ["--data", work, "--mode", "synthetic", "--scenes", "1", "--frames", "4"])
+    logs = os.path.join(work, "logs")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    outs = []
+    for nepoch, extra in (("1", []), ("2", ["--auto_resume_path", logs])):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+               "--master_port", port, "-m", "disconet_tpu_torch.tools.det.train_codet",
+               "--data", os.path.join(work, "train"), "--com", "disco", "--batch", "2", "--nepoch", nepoch,
+               "--mesh_agent", "2", "--dist_backend", "gloo", "--logpath", logs, *extra]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        print("\n".join("    | " + line for line in run.stdout.splitlines() if line.strip()))
+        if run.returncode != 0:
+            raise AssertionError(f"torchrun train_codet exited {run.returncode}: {run.stderr[-3000:]}")
+        outs.append((run.stdout, time.perf_counter() - t0))
+    (first, s1), (second, s2) = outs
+    needles = ("mesh: {'data': 1, 'agent': 2} over 2 ranks (gloo, cuda:0)", "epoch 1 done")
+    if not all(n in first for n in needles) or first.count("epoch 1 done") != 1:
+        raise AssertionError("torchrun train_codet: no mesh line or not one epoch line")
+    if "auto-resumed from epoch 1" not in second or "epoch 2 done" not in second:
+        raise AssertionError("torchrun train_codet: the resumed run did not continue from epoch 1")
+    if not os.path.exists(os.path.join(logs, "disco", "epoch_2.pth")):
+        raise AssertionError("torchrun train_codet: no epoch_2.pth")
+    print(f"torchrun train_codet --mesh_agent 2 (gloo, 2 ranks on the card): an epoch in {s1:.1f} s, resumed for a "
+          f"second in {s2:.1f} s (process start included)")
 
 
 if __name__ == "__main__":

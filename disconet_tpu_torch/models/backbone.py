@@ -4,16 +4,37 @@ The conv stack runs NCHW tensors in the channels_last memory format, so the
 head input's (N, H, W, C) view is free and the fusion layer's maps can be
 handled channel-last without copies.
 
-``compute_dtype`` "bfloat16" casts conv inputs and weights to bf16 and keeps
-accumulation and BatchNorm arithmetic in fp32. A conv's output is bf16, as the
-JAX package's bf16 convs return it. A ConvBNRelu returns fp32, as the JAX
-package's does, unless the caller passes ``store_bf16`` in eval mode (the
-``predict`` path does), where the bf16 mode stores it in bf16 (see
-``ConvBNRelu.forward``). The split 1x1 conv of the fusion scorer and the
-detection heads keep their fp32 accumulator unrounded, as the JAX package's
-``preferred_element_type=float32`` dots do: they multiply bf16-rounded
-operands in fp32 (a product of two bf16 values is exact in fp32, and TF32 is
-off). "float32" is the exact mode.
+``compute_dtype`` "bfloat16" computes every conv and dot of training and
+evaluation as the JAX package's bf16 mode compiles under XLA: the operands are
+rounded to bf16 (round to nearest even), the products are exact, the
+accumulator and the result are fp32. XLA keeps each bf16 conv's result in
+fp32 (``xla_allow_excess_precision`` folds the convert that follows it), and
+in the backward it rounds the incoming cotangent to bf16 as an operand of the
+dgrad and wgrad, whose results stay fp32 too. The conv is
+:func:`conv2d_bf16_operands`; on the card it runs on TF32 tensor cores, which
+are exact on bf16-rounded operands. The dots of the fusion scorer and the
+detection heads round their operands (:func:`_round_bf16`) and multiply in
+fp32; their backward feeds the cotangent on unrounded, as XLA's transpose of
+the operand convert does. "float32" is the exact mode.
+
+Inference keeps a deliberate difference: with ``store_bf16`` in eval mode
+(``pipeline.predict`` and the predict steps) a conv runs in bf16 on cuDNN and
+its ConvBNRelu stores bf16 (see ``ConvBNRelu.forward``); the precision of
+inference does not move the detections' mAP, and this path halves the bytes
+of ``predict``'s elementwise passes.
+
+The other models reach these convs through ``ConvBNRelu``: the UNet's blocks,
+When2com's handshake encoders, ``cat``'s projection and ``agent``'s scorer
+(the JAX modules cast to ``compute_dtype`` there). DiscoNet's scorer's last
+1x1 conv, V2VNet's message conv and ConvGRU and the ``SegHead`` stay fp32, as
+the JAX modules do.
+
+Under a device mesh (``disconet_tpu_torch.parallel``, attached with
+``parallel.attach_mesh``) the training BatchNorms take their statistics over
+every rank's rows (one all_reduce of the per-channel sum, sum of squares and
+count), and with an H-sharded grid every 3x3 conv reads its neighbours'
+boundary rows (``parallel.halo_exchange``), so a sharded step computes the
+one-process step.
 
 ``module.train()`` selects BatchNorm on batch statistics, ``.eval()`` on the
 running statistics; one module tree serves both. In training the statistics
@@ -43,6 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from disconet_tpu_torch.config import Config
+from disconet_tpu_torch.parallel.spatial import halo_exchange
 
 # flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch statistic
 MOMENTUM = 0.9
@@ -92,9 +114,75 @@ def stage(fn: Callable[..., torch.Tensor], *args: torch.Tensor) -> torch.Tensor:
     return checkpoint(run, *args, use_reentrant=False)
 
 
+class _RoundBF16(torch.autograd.Function):
+    """x rounded to bf16 and held in fp32; the backward passes the cotangent
+    on as it is (XLA's transpose of an f32 -> bf16 operand convert)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to bf16 and held in fp32."""
-    return x.to(torch.bfloat16).float()
+    """x rounded to bf16 and held in fp32 (an operand of an fp32 product)."""
+    return _RoundBF16.apply(x)
+
+
+@contextlib.contextmanager
+def _tf32_convs(t: torch.Tensor):
+    """cuDNN convs of fp32 tensors on TF32 tensor cores within the block, for
+    a CUDA ``t``: exact on bf16-rounded operands (their low 16 mantissa bits
+    are zero), so the products are the bf16 products at TF32's rate. The
+    global flag ``build_model`` sets is put back after."""
+    if t.device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Conv2dBF16Operands(torch.autograd.Function):
+    """The conv of :func:`conv2d_bf16_operands`. The rounded operands are
+    saved as bf16 (half the bytes of fp32) and widened again in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.stride, ctx.padding = stride, padding
+        with _tf32_convs(x):
+            return F.conv2d(xb.float(), wb.float(), stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gr = g.to(torch.bfloat16).float()
+        stride = (ctx.stride,) * 2 if isinstance(ctx.stride, int) else tuple(ctx.stride)
+        padding = (ctx.padding,) * 2 if isinstance(ctx.padding, int) else tuple(ctx.padding)
+        with _tf32_convs(g):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gr, xb.float(), wb.float(), None, stride, padding, (1, 1), False, (0, 0), 1,
+                (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False),
+            )
+        return gx, gw, None, None
+
+
+def conv2d_bf16_operands(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
+    """``F.conv2d`` of ``x`` and ``w`` rounded to bf16, exact products, an
+    fp32 accumulator and an fp32 result: the JAX package's bf16 conv as XLA
+    compiles it. The backward rounds the incoming cotangent to bf16 and
+    returns the input and weight gradients in fp32. No host sync, so a CUDA
+    graph captures it; ``torch.utils.checkpoint`` recomputes it."""
+    return _Conv2dBF16Operands.apply(x, w, stride, padding)
 
 
 def bn_channels_last(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -111,7 +199,15 @@ def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -
     bn.running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
 
 
-def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def _global_moments(x_sum: torch.Tensor, sq_sum: torch.Tensor, count: torch.Tensor, mesh):
+    """(E[x], E[x^2]) per channel over every rank of ``mesh``: one all_reduce
+    of the local sums and count, differentiable."""
+    C = x_sum.shape[0]
+    tot = mesh.all_reduce(torch.cat([x_sum, sq_sum, count.reshape(1).to(x_sum.dtype)]))
+    return tot[:C] / tot[-1], tot[C : 2 * C] / tot[-1]
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d, mesh=None) -> torch.Tensor:
     """Batch-statistics BatchNorm of (N, C, H, W) fp32 ``y``; updates ``bn``'s
     running statistics with the biased variance.
 
@@ -119,8 +215,18 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     buffers, blends the unbiased one into them. With momentum 1 into fresh
     buffers it hands back the batch mean and the unbiased variance from its
     own reduction, and n/(n-1) is taken off here.
+
+    Under a ``mesh`` the statistics are over every rank's rows, as flax
+    computes them: ``var = max(0, E[x^2] - E[x]^2)``.
     """
     C = y.shape[1]
+    if mesh is not None:
+        red = (0, 2, 3)
+        mean, ex2 = _global_moments(y.sum(red), y.square().sum(red), y.new_tensor(y.numel() // C), mesh)
+        var = torch.clamp(ex2 - mean.square(), min=0.0)
+        _update_running(bn, mean, var)
+        scale = (bn.weight * torch.rsqrt(var + bn.eps))[:, None, None]
+        return (y - mean[:, None, None]) * scale + bn.bias[:, None, None]
     n = y.numel() // C
     mean = torch.zeros(C, device=y.device)
     var = torch.zeros(C, device=y.device)
@@ -129,19 +235,24 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return out
 
 
-def masked_batch_norm_train(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def masked_batch_norm_train(x: torch.Tensor, mask: torch.Tensor, bn: nn.BatchNorm2d, mesh=None) -> torch.Tensor:
     """Batch-statistics BatchNorm over the last axis of a channel-last fp32
     tensor (N, ..., C) whose statistics count only the rows where ``mask``
     (N,) holds; updates ``bn``'s running statistics.
 
     As the JAX package's ``MaskedBatchNorm``: ``var = E[x^2] - E[x]^2`` over
-    ``sum(mask) * prod(spatial)`` elements, with no clip at 0.
+    ``sum(mask) * prod(spatial)`` elements, with no clip at 0; under a
+    ``mesh`` the sums and the count are over every rank.
     """
     red = tuple(range(x.dim() - 1))
     m = mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
     cnt = m.sum() * float(x[0, ..., 0].numel())
-    mean = (x * m).sum(red) / cnt
-    var = (x.square() * m).sum(red) / cnt - mean.square()
+    if mesh is not None:
+        mean, ex2 = _global_moments((x * m).sum(red), (x.square() * m).sum(red), cnt, mesh)
+        var = ex2 - mean.square()
+    else:
+        mean = (x * m).sum(red) / cnt
+        var = (x.square() * m).sum(red) / cnt - mean.square()
     _update_running(bn, mean, var)
     return bn.weight * (x - mean) * torch.rsqrt(var + bn.eps) + bn.bias
 
@@ -150,6 +261,9 @@ class ConvBNRelu(nn.Module):
     """k x k conv (no bias, symmetric k//2 padding) -> BatchNorm -> ReLU.
 
     BatchNorm is eps 1e-5, momentum 0.9 in flax's convention (torch's 0.1).
+    ``mesh`` (None, or a ``parallel.Mesh`` set by ``parallel.attach_mesh``)
+    makes the training statistics global and, with a spatial axis, exchanges
+    halo rows around the k x k conv.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, bf16: bool = True):
@@ -157,8 +271,26 @@ class ConvBNRelu(nn.Module):
         self.stride = stride
         self.padding = kernel // 2
         self.bf16 = bf16
+        self.mesh = None
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+
+    def _conv(self, x: torch.Tensor, store_bf16: bool) -> torch.Tensor:
+        """The k x k conv in the compute mode. On an H-sharded grid the strip
+        takes ``padding`` rows from each neighbour (zeros at the grid's
+        edges) and the conv pads W only."""
+        padding = self.padding
+        if padding and self.mesh is not None and self.mesh.axis_size("spatial") > 1:
+            if self.stride == 2 and x.shape[2] % 2:
+                raise ValueError(f"a stride-2 conv of an H-sharded grid needs even strips, got {x.shape[2]} rows")
+            x = halo_exchange(x, self.mesh.group("spatial"), padding)
+            padding = (0, padding)
+        if not self.bf16:
+            return F.conv2d(x.float(), self.weight, stride=self.stride, padding=padding)
+        if store_bf16 and not self.training:  # inference: cuDNN's bf16 conv, bf16 out
+            return F.conv2d(x.to(torch.bfloat16), self.weight.to(torch.bfloat16),
+                            stride=self.stride, padding=padding)
+        return conv2d_bf16_operands(x, self.weight, self.stride, padding)
 
     def forward(
         self, x: torch.Tensor, store_bf16: bool = False, sample_mask: Optional[torch.Tensor] = None
@@ -169,9 +301,9 @@ class ConvBNRelu(nn.Module):
         where it holds (the JAX package's ``masked_bn``: the concatenating
         fusion's projection, over present receivers).
 
-        BatchNorm reads the conv's output (bf16 in the bf16 mode) and
-        computes in fp32 with fp32 parameters. With ``store_bf16`` (detection,
-        ``pipeline.detect``) the eval-mode bf16 mode stores the result in
+        BatchNorm computes in fp32 with fp32 parameters on the conv's fp32
+        result. With ``store_bf16`` (detection, ``pipeline.detect``) the
+        eval-mode bf16 mode runs the conv in bf16 and stores the result in
         bf16: the next conv, the scorer's dots and the heads cast it to bf16
         anyway, so storing it rounded changes no value they see and halves
         the bytes of every elementwise pass. The one other consumer, the pose
@@ -180,21 +312,13 @@ class ConvBNRelu(nn.Module):
         teacher and evaluation leave it off, so the KD taps that the feature
         MSE reads at ``kd_weight`` 1e5 are fp32.
         """
-        if self.bf16:
-            y = F.conv2d(
-                x.to(torch.bfloat16), self.weight.to(torch.bfloat16),
-                stride=self.stride, padding=self.padding,
-            )
-        else:
-            y = F.conv2d(x.float(), self.weight, stride=self.stride, padding=self.padding)
+        y = self._conv(x, store_bf16)
         bn = self.BatchNorm_0
         if self.training:
             if sample_mask is not None:  # over the channel-last view, then back
-                y = masked_batch_norm_train(y.float().permute(0, 2, 3, 1), sample_mask, bn)
+                y = masked_batch_norm_train(y.permute(0, 2, 3, 1), sample_mask, bn, mesh=self.mesh)
                 return F.relu(y.permute(0, 3, 1, 2))
-            return F.relu_(batch_norm_train(y.float(), bn))
-        if not store_bf16:
-            y = y.float()
+            return F.relu_(batch_norm_train(y, bn, mesh=self.mesh))
         y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
         return F.relu_(y)
 
@@ -206,28 +330,23 @@ class ConvBNRelu(nn.Module):
 
     def _bn_relu_last(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return F.relu(masked_batch_norm_train(y, mask, self.BatchNorm_0))
+            return F.relu(masked_batch_norm_train(y, mask, self.BatchNorm_0, mesh=self.mesh))
         return F.relu(bn_channels_last(y, self.BatchNorm_0))
 
     def forward_last(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """1x1 conv on a channel-last (N, ..., Cin) tensor -> (N, ..., Cout),
         fp32; in training the BatchNorm statistics count the rows where
         ``mask`` (N,) holds."""
-        y = self._dot(x, self.weight[:, :, 0, 0])
-        if self.bf16:  # a natural bf16 conv returns bf16
-            y = _round_bf16(y)
-        return self._bn_relu_last(y, mask)
+        return self._bn_relu_last(self._dot(x, self.weight[:, :, 0, 0]), mask)
 
-    def forward_pair1x1(self, shared: torch.Tensor, per_item: torch.Tensor, mask: torch.Tensor,
-                        natural: bool = False) -> torch.Tensor:
+    def forward_pair1x1(self, shared: torch.Tensor, per_item: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The 1x1 conv of concat(broadcast(shared), per_item), channel-last.
 
         ``shared`` (N, h, w, Cs) and ``per_item`` (N*S, h, w, Cp) -> (N*S, h, w, Cout).
         The kernel is split along its input axis, so the shared half projects
         once per group of S rows and the concat is never built. ``mask``
         (N*S,) as in :meth:`forward_last`. The sum stays an fp32 accumulator,
-        as the JAX package's ``pair1x1`` mode keeps it; ``natural`` rounds it
-        to bf16 in the bf16 mode, as the natural conv of the concat returns it.
+        as XLA keeps the JAX package's ``pair1x1`` dots and natural 1x1 convs.
         """
         Cs = shared.shape[-1]
         w = self.weight[:, :, 0, 0]
@@ -235,8 +354,6 @@ class ConvBNRelu(nn.Module):
         p_proj = self._dot(per_item, w[:, Cs:])
         N, h, wd, Fo = s_proj.shape
         y = (s_proj[:, None] + p_proj.reshape(N, -1, h, wd, Fo)).reshape(-1, h, wd, Fo)
-        if natural and self.bf16:
-            y = _round_bf16(y)
         return self._bn_relu_last(y, mask)
 
 

@@ -25,6 +25,14 @@ Training and the KD teacher store fp32 throughout. The warp's backward is an
 ``index_add`` into the sampled map (atomics on the card), so its gradient is
 not bit-reproducible from run to run there.
 
+Under a device mesh (``parallel.attach_mesh``) a rank holds its scenes,
+agents and BEV rows. With an agent or a spatial axis the fusion-layer maps
+and the agent mask are all-gathered before the warp, which reads every
+sender's whole map, and the rank warps and fuses for its own receivers'
+rows (``_warp_and_fuse``); the all_gather's backward sums the senders'
+gradients back onto their ranks. DiscoNet does so (``shards_fusion``); the
+other fusion models run under a data axis only.
+
 The public outputs keep the JAX package's layout: for "det" cls (B, A, H, W,
 NA, NC), reg (B, A, H, W, NA, code), head_raw (B, A, H, W, NA*(NC + code)) in
 ``head_raw_dtype`` and head_raw_f32 (the same unrounded, fp32); for "seg"
@@ -58,11 +66,13 @@ def batch_to_agents(x: torch.Tensor, batch: int, agents: int) -> torch.Tensor:
     return x.reshape((batch, agents) + tuple(x.shape[1:]))
 
 
-def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple) -> torch.Tensor:
-    """Every sender's map in every receiver's frame: feats (B, A, h, w, C),
-    trans (B, A, A, 4, 4) -> (B, Ar, As, h, w, C), zeros outside each
-    sender's field of view (the gather form of ``ops/warp.py``)."""
-    return warp_features(feats, trans, extent_xy)
+def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Every sender's map in every receiver's frame: feats (B, As, h, w, C),
+    trans (B, Ar, As, 4, 4) -> (B, Ar, As, h, w, C), zeros outside each
+    sender's field of view (the gather form of ``ops/warp.py``); ``rows``
+    computes only those receiver rows."""
+    return warp_features(feats, trans, extent_xy, rows)
 
 
 def sender_softmax(scores: torch.Tensor, agent_mask: torch.Tensor) -> torch.Tensor:
@@ -136,12 +146,15 @@ class IntermediateFusionModel(nn.Module):
 
     # store the fusion-layer map in bf16 under store_bf16 (DiscoNet only)
     fusion_store_bf16 = False
+    # whether the fusion runs under agent and spatial mesh axes (DiscoNet only)
+    shards_fusion = False
 
     def __init__(self, config: Config, layer: int = 3, kd_flag: bool = False, task: str = "det"):
         super().__init__()
         self.config = config
         self.layer = layer
         self.kd_flag = kd_flag
+        self.mesh = None  # a parallel.Mesh, set by parallel.attach_mesh
         # whether fuse reads the warped maps (When2com without warp_flag does not)
         self.uses_warp = True
         attach_backbone_and_heads(self, config, task)
@@ -173,8 +186,31 @@ class IntermediateFusionModel(nn.Module):
         or None where ``fuse`` does not read it."""
         return warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
 
+    def fuse_sharded(self, feats_k: torch.Tensor, warped: torch.Tensor, recv_mask: torch.Tensor,
+                     send_mask: torch.Tensor) -> torch.Tensor:
+        """``fuse`` for a rank's own receivers and rows: feats_k (B, Ar, h, w,
+        C), warped (B, Ar, As, h, w, C), the receivers' and the senders'
+        masks -> (B, Ar, h, w, C). Models with ``shards_fusion`` define it."""
+        raise NotImplementedError
+
     def _warp_and_fuse(self, fk: torch.Tensor, agent_mask: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
-        return self.fuse(fk, self.warp(fk, trans), agent_mask, trans)
+        """The fusion of this rank's maps. Under a mesh with agent or spatial
+        axes the senders' maps and masks are all-gathered (the warp reads the
+        whole map of every agent) and the rank fuses its own receivers'
+        rows; ``trans`` holds its receivers' rows already."""
+        mesh = self.mesh
+        if mesh is None or not mesh.gathers_senders:
+            return self.fuse(fk, self.warp(fk, trans), agent_mask, trans)
+        if not self.shards_fusion:
+            raise NotImplementedError(
+                f"{type(self).__name__} runs under a data mesh only: agent and spatial sharding of the "
+                "other fusion models is ROADMAP.md Queue 1, item 20")
+        senders = mesh.all_gather(mesh.all_gather(fk, "agent", 1), "spatial", 2)
+        send_mask = mesh.all_gather(agent_mask, "agent", 1)
+        h = fk.shape[2]
+        r0 = mesh.coords["spatial"] * h
+        warped = warp_all_pairs(senders, trans, self.config.area_extents[:2], rows=(r0, r0 + h))
+        return self.fuse_sharded(fk, warped, agent_mask, send_mask)
 
     def forward(
         self, bev: torch.Tensor, trans: torch.Tensor, agent_mask: torch.Tensor, store_bf16: bool = False

@@ -45,6 +45,7 @@ class DiscoNet(IntermediateFusionModel):
     """Intermediate-collaboration student with DiscoGraph fusion."""
 
     fusion_store_bf16 = True  # the scorer casts to bf16; the sum is fp32
+    shards_fusion = True
 
     def __init__(self, config, layer: int = 3, kd_flag: bool = False, task: str = "det"):
         super().__init__(config, layer, kd_flag, task)
@@ -52,16 +53,19 @@ class DiscoNet(IntermediateFusionModel):
             self.layer_channels, bf16=config.compute_dtype == "bfloat16"
         )
 
-    def _weights(self, feats_k, warped, agent_mask):
+    def _weights(self, feats_k, warped, recv_mask, send_mask):
         B, Ar, As, h, w, C = warped.shape
-        pair_mask = (agent_mask[:, :, None] & agent_mask[:, None, :]).reshape(B * Ar * As)
+        pair_mask = (recv_mask[:, :, None] & send_mask[:, None, :]).reshape(B * Ar * As)
         scores = self.weight_net(
             feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C), pair_mask
         ).reshape(B, Ar, As, h, w)
-        return sender_softmax(scores, agent_mask)
+        return sender_softmax(scores, send_mask)
+
+    def fuse_sharded(self, feats_k, warped, recv_mask, send_mask):
+        return (self._weights(feats_k, warped, recv_mask, send_mask)[..., None] * warped).sum(dim=2)
 
     def fuse(self, feats_k, warped, agent_mask, trans):
-        return (self._weights(feats_k, warped, agent_mask)[..., None] * warped).sum(dim=2)
+        return self.fuse_sharded(feats_k, warped, agent_mask, agent_mask)
 
     def edge_weights(self, bev, trans, agent_mask, store_bf16: bool = False) -> torch.Tensor:
         """The DiscoGraph's per-pixel edge weights W_j->i, (B, Ar, As, h, w)
@@ -70,4 +74,5 @@ class DiscoNet(IntermediateFusionModel):
         caller sets the mode and the grad mode; ``forward`` never computes
         more for them."""
         _, fk = self.encode(bev, store_bf16)
-        return self._weights(fk, self.warp(fk, trans), agent_mask.to(torch.bool))
+        mask = agent_mask.to(torch.bool)
+        return self._weights(fk, self.warp(fk, trans), mask, mask)

@@ -68,7 +68,7 @@ class AgentWiseWeightedFusion(IntermediateFusionModel):
         pair_mask = (agent_mask[:, :, None] & agent_mask[:, None, :]).reshape(B * Ar * As)
         # the ego half of the 1x1 kernel projects once per receiver
         x = self.score_conv.forward_pair1x1(
-            feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C), pair_mask, natural=True
+            feats_k.reshape(B * Ar, h, w, C), warped.reshape(B * Ar * As, h, w, C), pair_mask
         )
         scores = self.score_out(x.mean(dim=(1, 2))).reshape(B, Ar, As)
         weights = sender_softmax(scores[..., None, None], agent_mask)[..., 0, 0]  # (B, Ar, As)

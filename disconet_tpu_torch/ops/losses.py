@@ -6,13 +6,26 @@ straight from the packed head tensor at sparse positive sites, and the KD
 per-pixel feature MSE. Every denominator is the JAX package's: ``max(sum(mask),
 1)`` for the masked means, ``sum(agent_mask) * H*W*NA`` for the packed focal
 loss and ``sum(mask) * (size / mask.size)`` for KD.
+
+``global_sum`` (a rank's ``Mesh.all_reduce``) makes every denominator the
+sum over the ranks of a mesh: each rank's loss is then its share of the
+global loss, and the shares and their gradients add up to the global ones.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+
+GlobalSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _count(n: torch.Tensor, global_sum: GlobalSum) -> torch.Tensor:
+    """A denominator: ``n`` summed over the ranks where ``global_sum`` is
+    given, at least 1."""
+    return torch.clamp(global_sum(n) if global_sum is not None else n, min=1.0)
 
 
 def _focal(logp: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -25,19 +38,23 @@ def softmax_focal_loss(
     one_hot: torch.Tensor,
     gamma: float = 2.0,
     mask: Optional[torch.Tensor] = None,
+    global_sum: GlobalSum = None,
 ) -> torch.Tensor:
     """Softmax focal loss over (..., C) logits and one-hot targets; the mean
     over elements, weighted by ``mask`` (...,) when given."""
     log_p = torch.log_softmax(logits.float(), dim=-1)
     per_elem = torch.sum(-one_hot.float() * ((1.0 - torch.exp(log_p)) ** gamma) * log_p, dim=-1)
     if mask is None:
-        return per_elem.mean()
+        if global_sum is None:
+            return per_elem.mean()
+        return per_elem.sum() / _count(per_elem.new_tensor(float(per_elem.numel())), global_sum)
     mask = mask.float()
-    return torch.sum(per_elem * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum(per_elem * mask) / _count(mask.sum(), global_sum)
 
 
 def weighted_smooth_l1(
-    pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, sigma: float = 3.0
+    pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, sigma: float = 3.0,
+    global_sum: GlobalSum = None,
 ) -> torch.Tensor:
     """Masked smooth-L1: 0.5 (sigma d)^2 where |d| < 1/sigma^2, else
     |d| - 0.5/sigma^2; the mean over elements where ``mask`` is nonzero."""
@@ -46,7 +63,7 @@ def weighted_smooth_l1(
     s2 = sigma * sigma
     loss = torch.where(abs_d < 1.0 / s2, 0.5 * s2 * d * d, abs_d - 0.5 / s2)
     mask = torch.broadcast_to(mask, loss.shape).float()
-    return torch.sum(loss * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum(loss * mask) / _count(mask.sum(), global_sum)
 
 
 def packed_det_losses(
@@ -61,6 +78,7 @@ def packed_det_losses(
     pos_cls: Optional[torch.Tensor] = None,
     gamma: float = 2.0,
     sigma: float = 3.0,
+    global_sum: GlobalSum = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Focal cls and masked smooth-L1 reg losses from the packed head tensor,
     equal to the two losses over the (B, A, H, W, NA, .) views.
@@ -97,7 +115,7 @@ def packed_det_losses(
     lse = m + torch.log(sum(torch.exp(lg - m) for lg in ls))
     neg = _focal(ls[0] - lse, gamma)  # every anchor as background
     dense_sum = torch.sum(neg.sum(dim=(2, 3, 4)) * am)
-    denom_cls = torch.clamp(am.sum() * (H * W * NA), min=1.0)
+    denom_cls = _count(am.sum() * (H * W * NA), global_sum)
 
     n_flat = H * W * NA
     idx = pos_idx.long()
@@ -116,7 +134,7 @@ def packed_det_losses(
 
     reg_lanes = NA * NC + a_id[..., None] * code + lanes[:code]
     pred_pos = torch.gather(rows, 3, reg_lanes)  # (B, A, P, code)
-    reg_loss = weighted_smooth_l1(pred_pos, pos_target, valid[..., None], sigma=sigma)
+    reg_loss = weighted_smooth_l1(pred_pos, pos_target, valid[..., None], sigma=sigma, global_sum=global_sum)
     return cls_loss, reg_loss
 
 
@@ -124,6 +142,7 @@ def kd_feature_loss(
     student_feats: torch.Tensor,
     teacher_feats: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    global_sum: GlobalSum = None,
 ) -> torch.Tensor:
     """Per-pixel MSE between student and teacher maps. ``mask`` (broadcast
     over the leading dims) leaves padded agents out. The caller detaches the
@@ -131,7 +150,8 @@ def kd_feature_loss(
     d = student_feats.float() - teacher_feats.float()
     sq = d * d
     if mask is None:
-        return sq.mean()
+        if global_sum is None:
+            return sq.mean()
+        return sq.sum() / _count(sq.new_tensor(float(sq.numel())), global_sum)
     mask = mask.float().reshape(tuple(mask.shape) + (1,) * (sq.dim() - mask.dim()))
-    denom = torch.clamp(mask.sum() * (sq.numel() / max(mask.numel(), 1)), min=1.0)
-    return torch.sum(sq * mask) / denom
+    return torch.sum(sq * mask) / _count(mask.sum() * (sq.numel() / max(mask.numel(), 1)), global_sum)

@@ -9,7 +9,7 @@ that half-pixel convention (so it does not call ``F.grid_sample``).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,16 +40,18 @@ def pose_to_affine(trans: torch.Tensor) -> torch.Tensor:
     return torch.cat([inv, t_inv[..., None]], dim=-1)
 
 
-def _sample_coords(trans: torch.Tensor, extent_xy, H: int, W: int):
-    """(..., 4, 4) poses -> sender pixel coords px, py of shape (..., H, W)
-    for every receiver pixel."""
+def _sample_coords(trans: torch.Tensor, extent_xy, H: int, W: int, rows: Optional[Tuple[int, int]] = None):
+    """(..., 4, 4) poses -> sender pixel coords px, py of shape (..., Hr, W)
+    for every receiver pixel of the rows ``rows`` = (first, end) of the H
+    axis (all H rows by default)."""
     (x_lo, x_hi), (y_lo, y_hi) = extent_xy
     cell_x = (x_hi - x_lo) / H
     cell_y = (y_hi - y_lo) / W
     dev = trans.device
-    mx = x_lo + (torch.arange(H, device=dev, dtype=torch.float32) + 0.5) * cell_x
+    r0, r1 = rows if rows is not None else (0, H)
+    mx = x_lo + (torch.arange(r0, r1, device=dev, dtype=torch.float32) + 0.5) * cell_x
     my = y_lo + (torch.arange(W, device=dev, dtype=torch.float32) + 0.5) * cell_y
-    gx, gy = torch.meshgrid(mx, my, indexing="ij")  # (H, W)
+    gx, gy = torch.meshgrid(mx, my, indexing="ij")  # (Hr, W)
     aff = pose_to_affine(trans.float())[..., None, None]  # (..., 2, 3, 1, 1)
     sx = aff[..., 0, 0, :, :] * gx + aff[..., 0, 1, :, :] * gy + aff[..., 0, 2, :, :]
     sy = aff[..., 1, 0, :, :] * gx + aff[..., 1, 1, :, :] * gy + aff[..., 1, 2, :, :]
@@ -59,24 +61,30 @@ def _sample_coords(trans: torch.Tensor, extent_xy, H: int, W: int):
 
 
 def warp_features(
-    feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple[Tuple[float, float], ...]
+    feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple[Tuple[float, float], ...],
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Warp every sender's features into every receiver's frame (gather form).
 
     Args:
-        feats: (..., A, H, W, C) per-agent maps; leading dims are a batch.
-        trans: (..., A, A, 4, 4); trans[..., i, j] maps sender j into receiver i.
+        feats: (..., As, H, W, C) the senders' maps; leading dims are a batch.
+        trans: (..., Ar, As, 4, 4); trans[..., i, j] maps sender j into
+            receiver i (Ar = As for all pairs; fewer receivers for a rank of
+            an agent-sharded mesh).
         extent_xy: ((x_lo, x_hi), (y_lo, y_hi)) metric extent of the map.
+        rows: (first, end) receiver rows of the H axis to compute (a strip of
+            an H-sharded mesh); all H rows by default.
 
     Returns:
-        (..., A_recv, A_send, H, W, C), zeros outside each sender's field of
-        view, in ``feats``' dtype; the four taps accumulate in float32.
+        (..., Ar, As, Hr, W, C), zeros outside each sender's field of view,
+        in ``feats``' dtype; the four taps accumulate in float32.
     """
     *lead, A, H, W, C = feats.shape
+    Ar = trans.shape[-4]
     nb = 1
     for d in lead:
         nb *= d
-    px, py = _sample_coords(trans.reshape(nb, A, A, 4, 4), extent_xy, H, W)  # (nb, A, A, H, W)
+    px, py = _sample_coords(trans.reshape(nb, Ar, A, 4, 4), extent_xy, H, W, rows)  # (nb, Ar, A, Hr, W)
     flat = feats.reshape(nb * A * H * W, C)
     # row of sender (b, j) in the flattened feature table
     base = (
@@ -104,4 +112,4 @@ def warp_features(
     out += tap(x0i + 1, y0i, wx1 * wy0)
     out += tap(x0i, y0i + 1, wx0 * wy1)
     out += tap(x0i + 1, y0i + 1, wx1 * wy1)
-    return out.to(feats.dtype).reshape(tuple(lead) + (A, A, H, W, C))
+    return out.to(feats.dtype).reshape(tuple(lead) + (Ar, A) + tuple(px.shape[-2:]) + (C,))

@@ -25,13 +25,34 @@ stacked batches, on the card one CUDA graph of the K steps
 single steps, and ``step`` advances by each group's length. With
 ``--debug_nans 1`` every step of a group is checked on its own, without the
 graph. ``--remat 1`` rematerializes each stage in the backward
-(``config.train_remat``). Not ported: ``--mesh_agent``/``--mesh_spatial`` >
-1 exit naming ROADMAP item 16.
+(``config.train_remat``).
+
+Under ``torchrun`` (a world of more than one rank) the run is data, agent
+and spatial parallel over ``torch.distributed``, as the JAX CLI's mesh:
+
+    torchrun --nproc_per_node 2 -m disconet_tpu_torch.tools.det.train_codet \
+        --data <root> --com disco --mesh_agent 2 --dist_backend gloo ...
+
+``n_data`` is the world size over ``--mesh_agent`` x ``--mesh_spatial``.
+``--dist_backend`` is the caller's choice, required under ``torchrun``:
+``nccl`` needs a card per rank (rank i on ``cuda:LOCAL_RANK``); ``gloo``
+runs CPU tensors (``--device cpu``) and CUDA ones, ranks sharing the cards
+(``cuda:LOCAL_RANK % device_count``). A rank that finds no device of the
+kind ``--device`` names exits. Every rank reads the same batches and trains
+on its slice (``parallel.shard_batch``); rank 0 alone prints and writes logs
+and checkpoints, a resume broadcasts rank 0's loaded state, and the KD
+tables are whole on every rank. DiscoNet and the single-agent models run
+under all three axes; the other ``--com`` under ``data`` only (agent and
+spatial sharding of the others is ROADMAP item 20).
+``--steps_per_dispatch`` > 1 and ``--visualization 1`` are single-device
+only.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import os
 import time
 
@@ -43,6 +64,7 @@ from disconet_tpu_torch.config import Config, default_fusion_layer, tiny_config
 from disconet_tpu_torch.data.dataset import BatchIterator, V2XSimDet
 from disconet_tpu_torch.device import resolve_device
 from disconet_tpu_torch.models.build import build_model
+from disconet_tpu_torch.parallel import replicate_tree, shard_batch
 from disconet_tpu_torch.training import (
     MetricLogger,
     batch_to_device,
@@ -114,6 +136,8 @@ def parse_args(argv=None):
     p.add_argument("--mesh_spatial", type=int, default=1, help="mesh axis size sharding the BEV H dim")
     # --- the port's ---
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["gloo", "nccl"],
+                   help="torch.distributed backend of a torchrun world (required there)")
     args = p.parse_args(argv)
     if args.layer is None:
         args.layer = default_fusion_layer(args.grid)
@@ -194,13 +218,52 @@ def dispatch_groups(batches, k: int):
         yield stack_host_batches(group)
 
 
-def steps_per_dispatch(args) -> int:
-    """``--steps_per_dispatch`` (at least 1); exits where the mesh flags ask
-    for more than one device, as the JAX CLI does."""
+def steps_per_dispatch(args, world_size: int = 1) -> int:
+    """``--steps_per_dispatch`` (at least 1); exits where the run is on more
+    than one rank or the mesh flags ask for it, as the JAX CLI does."""
     k = max(1, args.steps_per_dispatch)
-    if k > 1 and (getattr(args, "mesh_agent", 1) > 1 or getattr(args, "mesh_spatial", 1) > 1):
+    if k > 1 and (world_size > 1 or getattr(args, "mesh_agent", 1) > 1 or getattr(args, "mesh_spatial", 1) > 1):
         raise SystemExit("--steps_per_dispatch > 1 is single-device only (the mesh path shards per-batch)")
     return k
+
+
+# the models whose fusion runs under the agent and spatial mesh axes
+_SHARDED_COMS = ("", "disco")
+
+
+def init_mesh(args):
+    """(the device, the mesh or None). Under ``torchrun`` the process group
+    of ``--dist_backend`` and the (data, agent, spatial) mesh over it, with
+    the rank's device; else ``--device`` and no mesh."""
+    if (args.mesh_agent > 1 or args.mesh_spatial > 1) and args.com not in _SHARDED_COMS:
+        raise SystemExit(f"--com {args.com} runs under a data mesh only: --mesh_agent/--mesh_spatial > 1 "
+                         "is ported for DiscoNet and the single-agent models (ROADMAP.md Queue 1, item 20)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        if args.mesh_agent > 1 or args.mesh_spatial > 1:
+            raise SystemExit("--mesh_agent/--mesh_spatial > 1 needs that many ranks: run under torchrun")
+        return resolve_device(args.device), None
+    import torch.distributed as dist
+
+    from disconet_tpu_torch.parallel import make_mesh
+
+    if args.dist_backend is None:
+        raise SystemExit("a torchrun world needs --dist_backend gloo or nccl")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        if n_cards == 0:
+            raise SystemExit(f"rank {os.environ.get('RANK')}: --device cuda, but no CUDA device is visible")
+        if args.dist_backend == "nccl" and local >= n_cards:
+            raise SystemExit(f"nccl needs a card per rank: local rank {local}, {n_cards} card(s); "
+                             "use --dist_backend gloo to share them")
+        dev = torch.device("cuda", local % n_cards)
+        torch.cuda.set_device(dev)
+    elif args.dist_backend == "nccl":
+        raise SystemExit("--dist_backend nccl runs CUDA tensors only: pass --device cuda or --dist_backend gloo")
+    dist.init_process_group(args.dist_backend)
+    return dev, make_mesh(n_agent=args.mesh_agent, n_spatial=args.mesh_spatial, device=dev)
 
 
 def run_dispatch(step_k, step1, model, step: int, batch, k: int, debug_nans: bool):
@@ -222,18 +285,28 @@ def run_dispatch(step_k, step1, model, step: int, batch, k: int, debug_nans: boo
 
 def main(argv=None):
     args = parse_args(argv)
-    with profiling.nan_checks(args.debug_nans):
-        return _train(args)
+    steps_per_dispatch(args)
+    dev, mesh = init_mesh(args)
+    try:
+        with contextlib.ExitStack() as stack:
+            if mesh is not None and mesh.rank != 0:  # rank 0 alone prints
+                stack.enter_context(contextlib.redirect_stdout(stack.enter_context(open(os.devnull, "w"))))
+            stack.enter_context(profiling.nan_checks(args.debug_nans))
+            return _train(args, dev, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
-def _train(args):
-    K = steps_per_dispatch(args)
-    if args.mesh_agent > 1 or args.mesh_spatial > 1:
-        raise SystemExit("--mesh_agent/--mesh_spatial > 1 is not ported to the PyTorch port yet "
-                         "(ROADMAP.md Queue 1, item 16)")
+def _train(args, dev, mesh):
+    K = steps_per_dispatch(args, 1 if mesh is None else mesh.size)
     if args.visualization:
+        if mesh is not None:
+            raise SystemExit("--visualization 1 is single-device only")
         vis.require_matplotlib()
-    dev = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # the rank that prints and writes
     cfg = make_config(args)
 
     dataset = V2XSimDet(args.data, cfg, rsu=bool(args.rsu), bound=args.bound,
@@ -265,7 +338,10 @@ def _train(args):
     os.makedirs(logdir, exist_ok=True)
     ckpt_io = CheckpointIO(os.path.join(logdir, "ckpt"), max_to_keep=args.ckpt_keep or None)
     start_epoch = load_student_ckpt(args, model, optimizer)
-    logger = MetricLogger(logdir, log=args.log)
+    if mesh is not None:  # every rank starts from rank 0's weights and state
+        replicate_tree([model, optimizer, teacher], mesh)
+        print(f"mesh: {mesh.shape} over {mesh.size} ranks ({args.dist_backend}, {dev})")
+    logger = MetricLogger(logdir, log=args.log and lead)
 
     kd_cache = None
     if args.kd_flag and args.kd_cache:
@@ -273,7 +349,7 @@ def _train(args):
         if nbytes <= args.kd_cache_gb * 2**30:
             t0 = time.perf_counter()
             kd_cache = precompute_teacher_feats(teacher, dataset, cfg, batch_size=args.batch,
-                                                num_workers=args.nworker)
+                                                num_workers=args.nworker, mesh=mesh)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             print(f"KD cache: {nbytes / 2**20:.0f} MiB of teacher features "
@@ -283,7 +359,8 @@ def _train(args):
             print(f"KD cache disabled: table would be {nbytes / 2**30:.2f} GiB "
                   f"> --kd_cache_gb {args.kd_cache_gb}; re-forwarding per step")
     train_step = make_train_step(model, cfg, optimizer, teacher=teacher, kd_flag=bool(args.kd_flag),
-                                 kd_from_cache=kd_cache)
+                                 kd_from_cache=kd_cache, mesh=mesh)
+    to_device = None if mesh is None else functools.partial(shard_batch, mesh=mesh)
     # K steps a dispatch: one CUDA graph on the card (make_train_step_multi)
     train_k = multi_step(train_step, model, optimizer) if K > 1 else None
 
@@ -304,7 +381,7 @@ def _train(args):
         t_ep = time.perf_counter()
         waited = 0.0  # seconds the loop waited for its next device batch
         last, metrics = {}, None
-        batches = prefetch_to_device(dispatch_groups(host_batches(), K), dev)
+        batches = prefetch_to_device(dispatch_groups(host_batches(), K), dev, to_device=to_device)
         while True:
             t0 = time.perf_counter()
             dev_batch = next(batches, None)
@@ -312,7 +389,7 @@ def _train(args):
             if dev_batch is None:
                 break
             # >=: with K > 1 `step` advances by K and may jump past 2
-            if args.profile and not profile_done and prof is None and step >= 2:
+            if args.profile and lead and not profile_done and prof is None and step >= 2:
                 from torch.profiler import ProfilerActivity, profile
 
                 activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
@@ -330,12 +407,12 @@ def _train(args):
         dt = time.perf_counter() - t_ep
         logger.write(step, {**last, "scenes_per_sec": len(loader) * args.batch / dt,
                             "loader_wait_share": waited / dt}, prefix=f"epoch {epoch} done")
-        if best is not None:
+        if best is not None and lead:
             ep_loss = last.get("loss")
             if ep_loss is not None and np.isfinite(ep_loss) and ep_loss < best["loss"]:
                 best.update(loss=float(ep_loss), epoch=epoch,
                             snap={k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
-        if epoch % args.ckpt_every == 0 or epoch == args.nepoch:
+        if lead and (epoch % args.ckpt_every == 0 or epoch == args.nepoch):
             if best is not None and best["snap"] is not None and best["epoch"] != best["written"]:
                 _write_best(logdir, best)
             ckpt_io.save(epoch, model, optimizer, loss=last.get("loss", 0.0))

@@ -48,6 +48,7 @@ from disconet_tpu_torch.ops.losses import (
     weighted_smooth_l1,
 )
 from disconet_tpu_torch.ops.nms import multiclass_nms_decode
+from disconet_tpu_torch.parallel.mesh import attach_mesh, replicate_tree
 from disconet_tpu_torch.pipeline import detect
 
 Batch = Dict[str, torch.Tensor]
@@ -125,14 +126,31 @@ def create_train_state(model: nn.Module, lr: float = 1e-3) -> torch.optim.Adam:
                             capturable=on_card)
 
 
-def _losses(out, batch: Batch, config: Config, teacher_out=None):
+def _local_sites(batch: Batch, out, config: Config, mesh) -> Batch:
+    """``batch`` with its positive sites (the grid's, (h*W + w)*NA + a) made
+    sites of this rank's rows of an H-sharded head map; sites of other rows
+    become the local sentinel."""
+    H, W = out["reg"].shape[2:4]
+    n_local = H * W * config.num_anchors
+    idx = batch["reg_pos_idx"].long() - mesh.coords["spatial"] * n_local
+    ok = (idx >= 0) & (idx < n_local)
+    return {**batch, "reg_pos_idx": torch.where(ok, idx, torch.full_like(idx, n_local))}
+
+
+def _losses(out, batch: Batch, config: Config, teacher_out=None, mesh=None):
     """(loss, metrics) of one forward's outputs, fp32.
 
     Three target encodings, equal in value: the packed path (sparse targets,
     ``config.packed_loss``) reads the fp32 packed head tensor; the sparse view
     path scatters the positives into dense labels over the cls/reg views; the
     dense path reads ``label_one_hot``/``reg_target``/``reg_mask``.
+
+    Under a ``mesh`` every denominator is summed over the ranks, so the loss
+    and each metric are this rank's share of the global ones.
     """
+    gsum = mesh.all_reduce if mesh is not None else None
+    if mesh is not None and mesh.axis_size("spatial") > 1 and "reg_pos_idx" in batch:
+        batch = _local_sites(batch, out, config, mesh)
     agent_mask = batch["agent_mask"].float()  # (B, A)
     if "reg_pos_idx" in batch and "head_raw_f32" in out and config.packed_loss:
         cls_loss, reg_loss = packed_det_losses(
@@ -146,8 +164,9 @@ def _losses(out, batch: Batch, config: Config, teacher_out=None):
             pos_cls=batch.get("reg_pos_cls"),
             gamma=config.focal_gamma,
             sigma=config.smooth_l1_sigma,
+            global_sum=gsum,
         )
-        return _finish_losses(cls_loss, reg_loss, out, config, teacher_out, agent_mask)
+        return _finish_losses(cls_loss, reg_loss, out, config, teacher_out, agent_mask, gsum)
 
     am = agent_mask[:, :, None, None, None]
     cls_mask = am.expand(out["cls"].shape[:-1])
@@ -167,33 +186,33 @@ def _losses(out, batch: Batch, config: Config, teacher_out=None):
             pos = torch.zeros((B, A, n_flat + 1), device=idx.device).scatter_(2, idx, 1.0)
             pos = pos[..., :n_flat].reshape(B, A, H, W, NA)
             label = torch.stack([1.0 - pos, pos], dim=-1)
-        cls_loss = softmax_focal_loss(out["cls"], label, gamma=config.focal_gamma, mask=cls_mask)
+        cls_loss = softmax_focal_loss(out["cls"], label, gamma=config.focal_gamma, mask=cls_mask, global_sum=gsum)
         pred_flat = out["reg"].reshape(B, A, n_flat, code).float()
         safe = idx.clamp(max=n_flat - 1)
         pred_pos = torch.gather(pred_flat, 2, safe[..., None].expand(-1, -1, -1, code))
         reg_loss = weighted_smooth_l1(
             pred_pos, batch["reg_pos_target"], (valid * agent_mask[:, :, None])[..., None],
-            sigma=config.smooth_l1_sigma,
+            sigma=config.smooth_l1_sigma, global_sum=gsum,
         )
     else:
         cls_loss = softmax_focal_loss(
-            out["cls"], batch["label_one_hot"], gamma=config.focal_gamma, mask=cls_mask
+            out["cls"], batch["label_one_hot"], gamma=config.focal_gamma, mask=cls_mask, global_sum=gsum
         )
         reg_mask = batch["reg_mask"].float() * am
         reg_loss = weighted_smooth_l1(
-            out["reg"], batch["reg_target"], reg_mask[..., None], sigma=config.smooth_l1_sigma
+            out["reg"], batch["reg_target"], reg_mask[..., None], sigma=config.smooth_l1_sigma, global_sum=gsum
         )
-    return _finish_losses(cls_loss, reg_loss, out, config, teacher_out, agent_mask)
+    return _finish_losses(cls_loss, reg_loss, out, config, teacher_out, agent_mask, gsum)
 
 
-def _finish_losses(cls_loss, reg_loss, out, config: Config, teacher_out, agent_mask):
+def _finish_losses(cls_loss, reg_loss, out, config: Config, teacher_out, agent_mask, gsum=None):
     """The weighted total, with the KD term when the teacher's taps are given."""
     loss = config.cls_weight * cls_loss + config.reg_weight * reg_loss
     metrics = {"cls_loss": cls_loss, "reg_loss": reg_loss}
     if teacher_out is not None:
         kd = 0.0
         for sf, tf in zip(out["kd_feats"], teacher_out["kd_feats"]):
-            kd = kd + kd_feature_loss(sf, tf.detach(), mask=agent_mask)
+            kd = kd + kd_feature_loss(sf, tf.detach(), mask=agent_mask, global_sum=gsum)
         kd = kd / len(out["kd_feats"])
         metrics["kd_loss"] = kd
         loss = loss + config.kd_weight * kd
@@ -210,6 +229,21 @@ def _teacher_out(teacher: Optional[nn.Module], kd_flag: bool, batch: Batch, conf
         return teacher(get_bev(batch, "bev_teacher", config), None, batch["agent_mask"])
 
 
+def _all_reduce_grads(model: nn.Module, mesh) -> None:
+    """Every parameter's gradient summed over the ranks of ``mesh``, in one
+    all_reduce: the gradient of the global loss, whose shares the ranks
+    backpropagated."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    with torch.no_grad():
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        for p, g in zip(params, flat.split([g.numel() for g in grads])):
+            if p.grad is None:
+                p.grad = g.view_as(p).clone()
+            else:
+                p.grad.copy_(g.view_as(p))
+
+
 def make_train_step(
     model: nn.Module,
     config: Config,
@@ -217,6 +251,7 @@ def make_train_step(
     teacher: Optional[nn.Module] = None,
     kd_flag: bool = False,
     kd_from_cache: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
 ) -> Callable[[Batch], Batch]:
     """The training step of ``model`` with ``optimizer`` (see
     :func:`create_train_state`). With ``kd_flag`` and a ``teacher`` (a
@@ -228,20 +263,35 @@ def make_train_step(
     frozen teacher's taps are the same every epoch.
 
     ``config.train_remat`` runs the forward under ``remat_stages``: the
-    backward recomputes each stage from its boundary."""
+    backward recomputes each stage from its boundary.
+
+    ``mesh`` (a ``parallel.Mesh``; the batch is this rank's
+    ``parallel.shard_batch``) is attached to the model and the teacher
+    (``parallel.attach_mesh``): the BatchNorm statistics, the fusion and the
+    losses' denominators are global, the gradients are summed over the
+    ranks before Adam, and the metrics are the global ones. The KD tables
+    are whole on every rank; the step reads its agents' and rows' part."""
+    if mesh is not None:
+        attach_mesh(model, mesh)
+        if teacher is not None:
+            attach_mesh(teacher, mesh)
 
     def train_step(batch: Batch) -> Batch:
         if kd_flag and kd_from_cache is not None:
             idx = batch["frame_idx"].long()
-            teacher_out = {"kd_feats": [t.index_select(0, idx) for t in kd_from_cache]}
+            rows = [t.index_select(0, idx) for t in kd_from_cache]
+            teacher_out = {"kd_feats": rows if mesh is None else [mesh.local(r) for r in rows]}
         else:
             teacher_out = _teacher_out(teacher, kd_flag, batch, config)
         model.train()
         with remat_stages(config.train_remat):
             out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
-        loss, metrics = _losses(out, batch, config, teacher_out)
+        loss, metrics = _losses(out, batch, config, teacher_out, mesh)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            _all_reduce_grads(model, mesh)
+            metrics = {k: mesh.all_reduce(v.detach()) for k, v in metrics.items()}
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
         optimizer.step()
@@ -411,6 +461,7 @@ def precompute_teacher_feats(
     batch_size: int = 4,
     dtype: torch.dtype = torch.bfloat16,
     num_workers: int = 2,
+    mesh=None,
 ):
     """One eval pass of the frozen ``teacher`` over ``dataset``, in order, on
     the teacher's device -> the KD tables: one (N_pad, A, h, w, c) tensor per
@@ -421,9 +472,17 @@ def precompute_teacher_feats(
     Each batch's rows are written into tables allocated up front: holding
     the batches and concatenating at the end would double the peak memory
     over the size :func:`teacher_feat_bytes` gives. ``dtype`` bfloat16 halves
-    the tables; float32 gives the re-forward's taps exactly."""
+    the tables; float32 gives the re-forward's taps exactly.
+
+    With a ``mesh`` every rank holds the tables whole, as the JAX package
+    replicates them: each rank runs the pass (the teacher has no mesh
+    attached yet, so it runs whole batches) and rank 0's tables are
+    broadcast."""
     from disconet_tpu_torch.data.dataset import BatchIterator, pad_batch_to
 
+    if any(getattr(m, "mesh", None) is not None for m in teacher.modules()):
+        raise ValueError("precompute_teacher_feats runs the teacher on whole batches: build the tables "
+                         "before a step attaches the mesh")
     dev = next(teacher.parameters()).device
     teacher.eval()
     n = len(dataset)
@@ -445,6 +504,8 @@ def precompute_teacher_feats(
         offset += batch_size
     if order != list(range(n)):
         raise RuntimeError("the teacher pass did not visit the dataset in order")
+    if mesh is not None:
+        replicate_tree(tables, mesh)
     return tuple(tables)
 
 
@@ -463,14 +524,22 @@ def make_eval_step(
     return eval_step
 
 
-def make_predict_step(model: nn.Module, config: Config) -> Callable:
+def make_predict_step(model: nn.Module, config: Config, mesh=None) -> Callable:
     """The inference step: forward, scores, rotated NMS with the IoU kernel on
     the card. Returns boxes (B, A, K, 5), scores (B, A, K) and keep (B, A, K),
     false for absent agents; K = ``config.nms_top_k``. ``config.packed_nms``
     selects the binary candidates on logits (``pipeline.detect``). With
     ``num_classes`` > 2 the NMS runs per class (:func:`ops.nms.multiclass_nms_decode`) and
     the step returns ``(boxes, scores, keep, labels)`` with K' =
-    (num_classes - 1) * K slots an agent."""
+    (num_classes - 1) * K slots an agent.
+
+    ``mesh`` (data and agent axes) is attached to the model; each rank
+    predicts for its scenes and agents of a ``parallel.shard_batch``."""
+    if mesh is not None:
+        if mesh.axis_size("spatial") > 1:
+            raise NotImplementedError("the predict step under a spatial mesh axis is not ported "
+                                      "(ROADMAP.md Queue 1, item 20)")
+        attach_mesh(model, mesh)
     anchors = torch.from_numpy(make_anchors(config)).to(next(model.parameters()).device)
 
     def predict_step(batch: Batch):

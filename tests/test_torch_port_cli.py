@@ -415,8 +415,8 @@ def test_cli_kd_cycle_late_fusion_and_pose_noise(capsys, cli_data, tmp_path):
 
 
 @pytest.mark.parametrize("main,argv,needle", [
-    (train_codet.main, ["--mesh_agent", "2"], "item 16"),
-    (train_codet.main, ["--mesh_spatial", "2"], "item 16"),
+    (train_codet.main, ["--com", "sum", "--mesh_agent", "2"], "item 20"),
+    (train_codet.main, ["--com", "v2v", "--mesh_spatial", "2"], "item 20"),
 ])
 def test_cli_refuses_what_is_not_ported(cli_data, tmp_path, main, argv, needle):
     extra = ["--grid", "32", "--batch", "2", "--device", "cpu", "--logpath", str(tmp_path)]

@@ -250,7 +250,7 @@ def test_unmasked_fusion_batch_norm(fusion, teacher):
     (cat's projection: present receivers; agent's scorer: real pairs) moves
     the fusion's gradients past the limit the port is held to. The other
     models have no masked BatchNorm: the same plant changes no gradient."""
-    unmasked = lambda x, mask, bn, f=backbone.masked_batch_norm_train: f(x, torch.ones_like(mask), bn)
+    unmasked = lambda x, mask, bn, mesh=None, f=backbone.masked_batch_norm_train: f(x, torch.ones_like(mask), bn, mesh)
     with mock.patch.object(backbone, "masked_batch_norm_train", unmasked):
         model, _ = _port_step(fusion, teacher, "random")
     if fusion.com in ("cat", "agent"):

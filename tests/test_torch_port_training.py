@@ -389,7 +389,7 @@ def _port_step(ref):
     return model, teacher, optimizer, dev, metrics
 
 
-def _unbiased_batch_norm_train(y, bn):
+def _unbiased_batch_norm_train(y, bn, mesh=None):
     """A planted fault: batch_norm_train normalizing with the unbiased variance."""
     n = y.numel() // y.shape[1]
     var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=1)
@@ -401,7 +401,7 @@ def _unbiased_batch_norm_train(y, bn):
 _FAULTS = {
     "unbiased_variance": ("batch_norm_train", _unbiased_batch_norm_train),
     "unmasked_scorer": ("masked_batch_norm_train",
-                        lambda x, mask, bn, f=backbone.masked_batch_norm_train: f(x, torch.ones_like(mask), bn)),
+                        lambda x, mask, bn, mesh=None, f=backbone.masked_batch_norm_train: f(x, torch.ones_like(mask), bn, mesh)),
 }
 
 
@@ -495,6 +495,29 @@ def test_train_step_gradients_match_jax(kd_step):
     groups, per_tensor = _grad_distances(kd_step.model, kd_step)
     assert max(groups.values()) < GROUP_LIMIT, groups
     assert per_tensor < TENSOR_LIMIT, per_tensor
+
+
+def test_sharded_train_step_matches_jax(kd_step):
+    """The port's KD step on a ``data`` 2 mesh (2 gloo ranks on the CPU,
+    ``tests/test_torch_port_parallel.py``) from the same weights and batch
+    against the JAX package's single-device step, at the bounds of
+    :func:`test_train_step_gradients_match_jax`."""
+    from test_torch_port_parallel import spawn
+
+    ranks = spawn("jax_oracle", 2, student_state=_port("disco", kd_step.sv, kd_flag=True).state_dict(),
+                  teacher_state=_port("teacher", kd_step.tv).state_dict(), batch=kd_step.batch)
+    want = _flat(kd_step.grads)
+    for res in ranks:
+        for k, v in kd_step.metrics.items():
+            np.testing.assert_allclose(res["metrics"][k], v, rtol=1e-4, err_msg=k)
+        for k, g in res["grads"].items():
+            if k.startswith("heads."):
+                _close(g.numpy(), want[k], 1e-5, 1e-4, k)
+        model = types.SimpleNamespace(named_parameters=lambda grads=res["grads"]: [
+            (k, types.SimpleNamespace(grad=g)) for k, g in grads.items()])
+        groups, per_tensor = _grad_distances(model, kd_step)
+        assert max(groups.values()) < GROUP_LIMIT, groups
+        assert per_tensor < TENSOR_LIMIT, per_tensor
 
 
 @pytest.fixture(scope="module")
