@@ -118,9 +118,17 @@ Phases, each printing its own line; any failure exits non-zero:
    (relative L2) and the running statistics within 1e-5, the CPU tests'
    bounds; predict keep counts equal and the kept scores within 2e-3. The
    one-process step run twice prints the card's own spread (the warp's
-   atomics). Then ``train_codet --com disco --mesh_agent 2`` under
-   ``torchrun`` (gloo, both ranks on the card) for an epoch of 1 scene x 4
-   frames of synthetic data at full width, auto-resumed for a second.
+   atomics). Then every other ``--com`` (``sum``, ``mean``, ``max``,
+   ``cat``, ``agent``, ``v2v``, ``when2com``, ``who2com``) under ``agent``
+   2 and under ``spatial`` 2 (2 gloo ranks on the card, one spawn per
+   layout, the models in turn): one float32 train step and one ``predict``
+   of each at the same width and batch, and DiscoNet's ``predict``, against
+   the one-process step on the card: each group of layers' gradients within
+   1e-2 (relative L2), keep counts equal; a line per model with the
+   one-process step's own spread. Then ``train_codet --com disco
+   --mesh_agent 2`` under ``torchrun`` (gloo, both ranks on the card) for
+   an epoch of 1 scene x 4 frames of synthetic data at full width,
+   auto-resumed for a second.
 
 Phases 7, 9 and 12 also time their bf16 steps with the parent's arithmetic
 (every conv result rounded to bf16, patched in) and with the repair
@@ -1516,8 +1524,9 @@ def _phase12(cfg, host7, teacher):
 # composed BatchNorm of the mesh path against F.batch_norm's
 P13_METRIC_RTOL, P13_GRAD_NORM_RTOL, P13_GRAD_REL_L2, P13_STATS_ATOL = 1e-5, 1e-4, 1e-2, 1e-5
 P13_RUNS = (("data=2", "gloo", (2, 1, 1)), ("data=2 x agent=2", "gloo", (2, 2, 1)), ("world 1", "nccl", (1, 1, 1)))
-P13_GROUPS = {"encoder": ("stpn.stages_",), "fusion": ("weight_net.",),
-              "decoder": ("stpn.dec_", "stpn.head_conv."), "heads": ("heads.",)}
+# the groups of layers whose gradients are compared; "fusion" is the rest
+# (DiscoNet's weight_net, the other models' fusion layers)
+P13_GROUPS = {"encoder": ("stpn.stages_",), "decoder": ("stpn.dec_", "stpn.head_conv."), "heads": ("heads.",)}
 
 
 def _p13_config():
@@ -1557,8 +1566,9 @@ def _p13_step(host, mesh=None):
     }
 
 
-def _p13_rank(rank, world, port, backend, shape, host, path):
-    """A rank of phase 13's group: every rank on the one card."""
+def _p13_rank(rank, world, port, backend, shape, host, path, fn):
+    """A rank of phase 13's group, every rank on the one card: ``fn(host,
+    mesh)`` saved to ``path``.rank."""
     import torch
     import torch.distributed as dist
 
@@ -1568,13 +1578,14 @@ def _p13_rank(rank, world, port, backend, shape, host, path):
     torch.cuda.set_device(0)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
     try:
-        torch.save(_p13_step(host, make_mesh(*shape, device="cuda:0")), f"{path}.{rank}")
+        torch.save(fn(host, make_mesh(*shape, device="cuda:0")), f"{path}.{rank}")
     finally:
         dist.destroy_process_group()
 
 
-def _p13_spawn(backend, shape, host, work):
-    """Phase 13's ranks of ``shape`` on the card -> their results."""
+def _p13_spawn(backend, shape, host, work, fn=None):
+    """Phase 13's ranks of ``shape`` on the card, each running ``fn``
+    (:func:`_p13_step` by default) -> their results."""
     import math
     import multiprocessing
     import socket
@@ -1585,9 +1596,10 @@ def _p13_spawn(backend, shape, host, work):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    path = os.path.join(work, f"{backend}_{world}")
+    path = os.path.join(work, f"{backend}_{'x'.join(map(str, shape))}")
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_p13_rank, args=(r, world, port, backend, shape, host, path)) for r in range(world)]
+    procs = [ctx.Process(target=_p13_rank, args=(r, world, port, backend, shape, host, path, fn or _p13_step))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + 300
@@ -1604,14 +1616,18 @@ def _p13_spawn(backend, shape, host, work):
 
 
 def _group_distances(got, want):
-    """{group: relative L2 distance of the group's gradients taken together}."""
+    """{group: relative L2 distance of the group's gradients taken together};
+    a model's parameters outside ``P13_GROUPS`` form its "fusion" group."""
     import torch
 
+    groups = {g: [k for k in want if k.startswith(p)] for g, p in P13_GROUPS.items()}
+    taken = {k for keys in groups.values() for k in keys}
+    groups["fusion"] = [k for k in want if k not in taken]
     out = {}
-    for g, prefixes in P13_GROUPS.items():
-        keys = [k for k in want if k.startswith(prefixes)]
-        num = torch.sqrt(sum(((got[k] - want[k]) ** 2).sum() for k in keys))
-        out[g] = float(num / torch.sqrt(sum((want[k] ** 2).sum() for k in keys)))
+    for g, keys in groups.items():
+        if keys:
+            num = torch.sqrt(sum(((got[k] - want[k]) ** 2).sum() for k in keys))
+            out[g] = float(num / torch.sqrt(sum((want[k] ** 2).sum() for k in keys)))
     return out
 
 
@@ -1686,10 +1702,103 @@ def _phase13(cfg):
             if (worst["metric"] > P13_METRIC_RTOL or worst["grad_norm"] > P13_GRAD_NORM_RTOL
                     or worst["group"] > P13_GRAD_REL_L2 or worst["stats"] > P13_STATS_ATOL):
                 raise AssertionError(f"parallel {name}: the sharded step parts from one process: {worst}")
+        _p13_fusion(host, work)
         _p13_torchrun(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 13, the other fusion models: each --com's float32 train step and
+# predict under agent 2 and under spatial 2 (2 gloo ranks on the card, one
+# spawn per layout, the models in turn), DiscoNet's predict too, against the
+# one-process step on the same batch: each group of layers' gradients within
+# P13_GRAD_REL_L2, predict keep counts equal
+P13_COMS = ("sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com")
+P13_LAYOUTS = (("agent=2", (1, 2, 1)), ("spatial=2", (1, 1, 2)))
+
+
+def _p13_fusion_steps(host, mesh=None, twice=False, device="cuda"):
+    """Per ``--com``: one float32 train step and one predict of the model of
+    seed 0 on ``mesh``'s slice of ``host`` (the whole batch without one;
+    ``twice``: a second step from the same weights) -> metrics and
+    gradients on the host, predict outputs; DiscoNet's predict alone."""
+    import copy
+
+    import torch
+
+    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch.parallel import shard_batch
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_predict_step, make_train_step
+
+    cfg = _p13_config()
+    batch = batch_to_device(host, device) if mesh is None else shard_batch(host, mesh)
+    out = {}
+    for com in P13_COMS:
+        drawn = build_model(com, cfg, device=device, seed=0)
+        res = {"predict": [t.cpu() for t in make_predict_step(copy.deepcopy(drawn), cfg, mesh)(batch)[:3]]}
+        for run in ("step", "again") if twice else ("step",):
+            model = copy.deepcopy(drawn)
+            metrics = make_train_step(model, cfg, create_train_state(model), mesh=mesh)(batch)
+            res[run] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                        "grads": {k: p.grad.cpu() for k, p in model.named_parameters()}}
+            del model
+        out[com] = res
+        del drawn
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    model = build_model("disco", cfg, device=device, seed=0)
+    out["disco"] = {"predict": [t.cpu() for t in make_predict_step(model, cfg, mesh)(batch)[:3]]}
+    out["coords"] = None if mesh is None else mesh.coords
+    return out
+
+
+def _p13_fusion_check(ref, layouts):
+    """Hold each layout's ranks to the one-process results ``ref``: one
+    line per ``--com``, then an AssertionError naming every model past the
+    gradient limit."""
+    past = []
+    for com in P13_COMS + ("disco",):
+        parts = []
+        for name, ranks in layouts.items():
+            grad = loss = 0.0
+            kept = unmatched = 0
+            for res in ranks:
+                c = res["coords"]
+                b, a = res[com]["predict"][0].shape[:2]
+                want = [t[c["data"] * b:(c["data"] + 1) * b, c["agent"] * a:(c["agent"] + 1) * a]
+                        for t in ref[com]["predict"]]
+                n, u = _detections_equivalent(want, res[com]["predict"])
+                kept, unmatched = kept + n, unmatched + u
+                if "step" in res[com]:
+                    got, exp = res[com]["step"], ref[com]["step"]
+                    grad = max(grad, max(_group_distances(got["grads"], exp["grads"]).values()))
+                    loss = max(loss, abs(got["metrics"]["loss"] / exp["metrics"]["loss"] - 1))
+            step = f"gradients {grad:.2e}, loss {loss:.1e}, " if com != "disco" else ""
+            parts.append(f"{name}: {step}keep counts equal, {unmatched}/{kept} kept boxes unmatched")
+            if grad > P13_GRAD_REL_L2:
+                past.append(f"{com} {name} {grad:.3e}")
+        floor = ""
+        if "again" in ref[com]:
+            f = max(_group_distances(ref[com]["again"]["grads"], ref[com]["step"]["grads"]).values())
+            floor = f"; one process twice {f:.2e}"
+        print(f"parallel {com} (float32, full width, 2 gloo ranks on the card): " + "; ".join(parts)
+              + f" (gradient limit {P13_GRAD_REL_L2}{floor})")
+    if past:
+        raise AssertionError(f"parallel: gradients past {P13_GRAD_REL_L2} from one process: {', '.join(past)}")
+
+
+def _p13_fusion(host, work):
+    """Every other ``--com`` (and DiscoNet's predict) under ``agent`` 2 and
+    ``spatial`` 2 against one process on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref = _p13_fusion_steps(host, twice=True)
+    torch.cuda.empty_cache()
+    layouts = {name: _p13_spawn("gloo", shape, host, work, _p13_fusion_steps) for name, shape in P13_LAYOUTS}
+    _p13_fusion_check(ref, layouts)
+    print(f"parallel, the other --com under agent and spatial: {time.perf_counter() - t0:.1f} s")
 
 
 def _p13_torchrun(work):

@@ -30,8 +30,11 @@ agents and BEV rows. With an agent or a spatial axis the fusion-layer maps
 and the agent mask are all-gathered before the warp, which reads every
 sender's whole map, and the rank warps and fuses for its own receivers'
 rows (``_warp_and_fuse``); the all_gather's backward sums the senders'
-gradients back onto their ranks. DiscoNet does so (``shards_fusion``); the
-other fusion models run under a data axis only.
+gradients back onto their ranks. Every model fuses through
+``fuse_sharded``, which takes the receivers' and the senders' masks apart;
+one process calls it with the same mask twice. What a model reads beyond
+its rows (a 3x3 conv's halo, a spatial mean, V2VNet's re-warped state,
+When2com's keys) it takes through the mesh there.
 
 The public outputs keep the JAX package's layout: for "det" cls (B, A, H, W,
 NA, NC), reg (B, A, H, W, NA, code), head_raw (B, A, H, W, NA*(NC + code)) in
@@ -146,8 +149,6 @@ class IntermediateFusionModel(nn.Module):
 
     # store the fusion-layer map in bf16 under store_bf16 (DiscoNet only)
     fusion_store_bf16 = False
-    # whether the fusion runs under agent and spatial mesh axes (DiscoNet only)
-    shards_fusion = False
 
     def __init__(self, config: Config, layer: int = 3, kd_flag: bool = False, task: str = "det"):
         super().__init__()
@@ -169,7 +170,16 @@ class IntermediateFusionModel(nn.Module):
              trans: torch.Tensor) -> torch.Tensor:
         """feats_k (B, A, h, w, C), warped (B, Ar, As, h, w, C) or None,
         agent_mask (B, A) bool, trans (B, A, A, 4, 4) for a re-warp
-        -> (B, A, h, w, C)."""
+        -> (B, A, h, w, C): the one-process fusion."""
+        return self.fuse_sharded(feats_k, warped, agent_mask, agent_mask, trans)
+
+    def fuse_sharded(self, feats_k: torch.Tensor, warped: Optional[torch.Tensor], recv_mask: torch.Tensor,
+                     send_mask: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+        """The fusion of a rank's own receivers and rows: feats_k (B, Ar, h,
+        w, C), warped (B, Ar, As, h, w, C) or None, the receivers' (B, Ar)
+        and the senders' (B, As) masks, the receivers' poses trans (B, Ar,
+        As, 4, 4) -> (B, Ar, h, w, C). Without a mesh Ar = As and h is the
+        whole map."""
         raise NotImplementedError
 
     def encode(self, bev: torch.Tensor, store_bf16: bool = False):
@@ -186,12 +196,24 @@ class IntermediateFusionModel(nn.Module):
         or None where ``fuse`` does not read it."""
         return warp_all_pairs(fk, trans, self.config.area_extents[:2]) if self.uses_warp else None
 
-    def fuse_sharded(self, feats_k: torch.Tensor, warped: torch.Tensor, recv_mask: torch.Tensor,
-                     send_mask: torch.Tensor) -> torch.Tensor:
-        """``fuse`` for a rank's own receivers and rows: feats_k (B, Ar, h, w,
-        C), warped (B, Ar, As, h, w, C), the receivers' and the senders'
-        masks -> (B, Ar, h, w, C). Models with ``shards_fusion`` define it."""
-        raise NotImplementedError
+    def gather_senders(self, x: torch.Tensor) -> torch.Tensor:
+        """A rank's (B, Ar, h, w, C) maps -> every sender's whole map (B, As,
+        H, w, C), all-gathered over ``agent`` and ``spatial``; ``x`` itself
+        without a mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return x
+        return mesh.all_gather(mesh.all_gather(x, "agent", 1), "spatial", 2)
+
+    def warp_rows(self, senders: torch.Tensor, trans: torch.Tensor, h: int) -> torch.Tensor:
+        """The whole maps of every sender (B, As, H, w, C) warped into the
+        rank's receivers' frames (``trans`` (B, Ar, As, 4, 4)) at its ``h``
+        rows -> (B, Ar, As, h, w, C)."""
+        rows = None
+        if self.mesh is not None and self.mesh.axis_size("spatial") > 1:
+            r0 = self.mesh.coords["spatial"] * h
+            rows = (r0, r0 + h)
+        return warp_all_pairs(senders, trans, self.config.area_extents[:2], rows=rows)
 
     def _warp_and_fuse(self, fk: torch.Tensor, agent_mask: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
         """The fusion of this rank's maps. Under a mesh with agent or spatial
@@ -201,16 +223,9 @@ class IntermediateFusionModel(nn.Module):
         mesh = self.mesh
         if mesh is None or not mesh.gathers_senders:
             return self.fuse(fk, self.warp(fk, trans), agent_mask, trans)
-        if not self.shards_fusion:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs under a data mesh only: agent and spatial sharding of the "
-                "other fusion models is ROADMAP.md Queue 1, item 20")
-        senders = mesh.all_gather(mesh.all_gather(fk, "agent", 1), "spatial", 2)
         send_mask = mesh.all_gather(agent_mask, "agent", 1)
-        h = fk.shape[2]
-        r0 = mesh.coords["spatial"] * h
-        warped = warp_all_pairs(senders, trans, self.config.area_extents[:2], rows=(r0, r0 + h))
-        return self.fuse_sharded(fk, warped, agent_mask, send_mask)
+        warped = self.warp_rows(self.gather_senders(fk), trans, fk.shape[2]) if self.uses_warp else None
+        return self.fuse_sharded(fk, warped, agent_mask, send_mask, trans)
 
     def forward(
         self, bev: torch.Tensor, trans: torch.Tensor, agent_mask: torch.Tensor, store_bf16: bool = False

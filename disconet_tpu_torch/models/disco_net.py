@@ -45,7 +45,6 @@ class DiscoNet(IntermediateFusionModel):
     """Intermediate-collaboration student with DiscoGraph fusion."""
 
     fusion_store_bf16 = True  # the scorer casts to bf16; the sum is fp32
-    shards_fusion = True
 
     def __init__(self, config, layer: int = 3, kd_flag: bool = False, task: str = "det"):
         super().__init__(config, layer, kd_flag, task)
@@ -61,11 +60,8 @@ class DiscoNet(IntermediateFusionModel):
         ).reshape(B, Ar, As, h, w)
         return sender_softmax(scores, send_mask)
 
-    def fuse_sharded(self, feats_k, warped, recv_mask, send_mask):
+    def fuse_sharded(self, feats_k, warped, recv_mask, send_mask, trans):
         return (self._weights(feats_k, warped, recv_mask, send_mask)[..., None] * warped).sum(dim=2)
-
-    def fuse(self, feats_k, warped, agent_mask, trans):
-        return self.fuse_sharded(feats_k, warped, agent_mask, agent_mask)
 
     def edge_weights(self, bev, trans, agent_mask, store_bf16: bool = False) -> torch.Tensor:
         """The DiscoGraph's per-pixel edge weights W_j->i, (B, Ar, As, h, w)

@@ -118,10 +118,23 @@ class Mesh:
             raise RuntimeError("this mesh was built without a process group: it has no collectives")
         return self._groups[axis]
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over every rank, differentiable (its backward
-        sums the cotangents over every rank)."""
-        return _AllReduce.apply(t, self.group())
+    def all_reduce(self, t: torch.Tensor, axis: str = "world") -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``axis`` (every rank by
+        default), differentiable (its backward sums the cotangents over the
+        same ranks); ``t`` itself where the axis has size 1."""
+        if axis != "world" and self.axis_size(axis) == 1:
+            return t
+        return _AllReduce.apply(t, self.group(axis))
+
+    def spatial_mean(self, x: torch.Tensor, dims: Tuple[int, int]) -> torch.Tensor:
+        """The mean of ``x`` over ``dims``, its H-sharded rows and its
+        columns, over the whole grid: the strip's sums all-reduced over
+        ``spatial`` over the global count (every strip has as many rows)."""
+        n = self.axis_size("spatial")
+        if n == 1:
+            return x.mean(dim=dims)
+        count = math.prod(x.shape[d] for d in dims) * n
+        return self.all_reduce(x.sum(dim=dims), "spatial") / count
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in axis

@@ -42,6 +42,8 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 JAX_MATRIX = os.path.join(REPO, "results", "occluded_matrix.json")
 
@@ -290,16 +292,42 @@ def generate(args) -> None:
                 os.path.join(args.root, "gen.log"), args.inprocess)
 
 
-def summarize(results: dict, reference: dict) -> list:
+def ordering_stats(hi, lo) -> dict:
+    """The gap of two seed samples' means against their combined noise, as
+    the JAX package's harness judges an ordering (its
+    ``tools/_bench_harness.py::ordering_stats``): SIGNIFICANT when |gap|
+    exceeds sqrt(std_hi^2 + std_lo^2), population stds; with fewer than 2
+    seeds on a side there is no noise estimate and no verdict."""
+    hi, lo = np.asarray(hi, dtype=np.float64), np.asarray(lo, dtype=np.float64)
+    gap = float(np.mean(hi) - np.mean(lo))
+    n_hi, n_lo = len(hi), len(lo)
+    if n_hi < 2 or n_lo < 2:
+        return {"gap": gap, "noise": None, "n_hi": n_hi, "n_lo": n_lo, "verdict": "no verdict (n<2)"}
+    noise = float(np.sqrt(np.std(hi) ** 2 + np.std(lo) ** 2))
+    return {"gap": gap, "noise": noise, "n_hi": n_hi, "n_lo": n_lo,
+            "verdict": "SIGNIFICANT" if abs(gap) > noise else "within noise"}
+
+
+def mean_std(vals) -> str:
+    """'mean +/- std (n)' of a seed sample, the population std."""
+    v = np.asarray(list(vals), dtype=np.float64)
+    return f"{v.mean():.4f} +/- {v.std():.4f} (n={len(v)})"
+
+
+def summarize(results: dict, reference: dict, metrics=None) -> list:
     """Print each config's port cells beside the JAX matrix's cells of the
     same key, with the JAX seeds' range; returns the rows. A port value
-    outside the range by more than the range's width is flagged."""
+    outside the range by more than the range's width is flagged. Below each
+    row, the port's and JAX's mean +/- std and :func:`ordering_stats` of
+    the port's seeds against JAX's (the row's ``ordering``). ``metrics``:
+    the metrics of every config (default: mAP@0.5 and mAP@0.7, MOTA and
+    MOTP for the tracking rows)."""
     rows = []
     names = sorted({k.split("/")[0] for k in results if "/seed" in k})
     print(f"\n{'config':<18} {'metric':<8} {'port (seeds)':<30} {'JAX (seeds)':<30} {'JAX range':<17} verdict")
     for name in names:
-        metrics = ("MOTA", "MOTP") if name.endswith("+track") else ("mAP@0.5", "mAP@0.7")
-        for metric in metrics:
+        names_metrics = metrics or (("MOTA", "MOTP") if name.endswith("+track") else ("mAP@0.5", "mAP@0.7"))
+        for metric in names_metrics:
             port = {k.split("/seed")[1]: v[metric] for k, v in results.items()
                     if k.split("/")[0] == name and metric in v}
             ref = [v[metric] for k, v in reference.items() if k.split("/")[0] == name and metric in v]
@@ -313,7 +341,13 @@ def summarize(results: dict, reference: dict) -> list:
             fmt = lambda vals: ", ".join(f"{v:.4f}" for v in vals)  # noqa: E731
             print(f"{name:<18} {metric:<8} {fmt(port[s] for s in sorted(port)):<30} {fmt(sorted(ref)):<30} "
                   + (f"[{lo:.4f}, {hi:.4f}]" if ref else "-").ljust(17) + f" {verdict}")
-            rows.append({"config": name, "metric": metric, "port": port, "jax": ref, "verdict": verdict})
+            row = {"config": name, "metric": metric, "port": port, "jax": ref, "verdict": verdict}
+            if ref:
+                st = row["ordering"] = ordering_stats(list(port.values()), ref)
+                noise = "-" if st["noise"] is None else f"{st['noise']:.4f}"
+                print(f"{'':<18} {'':<8} port {mean_std(port.values())}, JAX {mean_std(ref)}: "
+                      f"gap {st['gap']:+.4f}, noise {noise} -> {st['verdict']}")
+            rows.append(row)
     return rows
 
 

@@ -41,9 +41,7 @@ runs CPU tensors (``--device cpu``) and CUDA ones, ranks sharing the cards
 kind ``--device`` names exits. Every rank reads the same batches and trains
 on its slice (``parallel.shard_batch``); rank 0 alone prints and writes logs
 and checkpoints, a resume broadcasts rank 0's loaded state, and the KD
-tables are whole on every rank. DiscoNet and the single-agent models run
-under all three axes; the other ``--com`` under ``data`` only (agent and
-spatial sharding of the others is ROADMAP item 20).
+tables are whole on every rank. Every ``--com`` runs under all three axes.
 ``--steps_per_dispatch`` > 1 and ``--visualization 1`` are single-device
 only.
 """
@@ -227,17 +225,10 @@ def steps_per_dispatch(args, world_size: int = 1) -> int:
     return k
 
 
-# the models whose fusion runs under the agent and spatial mesh axes
-_SHARDED_COMS = ("", "disco")
-
-
 def init_mesh(args):
     """(the device, the mesh or None). Under ``torchrun`` the process group
     of ``--dist_backend`` and the (data, agent, spatial) mesh over it, with
     the rank's device; else ``--device`` and no mesh."""
-    if (args.mesh_agent > 1 or args.mesh_spatial > 1) and args.com not in _SHARDED_COMS:
-        raise SystemExit(f"--com {args.com} runs under a data mesh only: --mesh_agent/--mesh_spatial > 1 "
-                         "is ported for DiscoNet and the single-agent models (ROADMAP.md Queue 1, item 20)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         if args.mesh_agent > 1 or args.mesh_spatial > 1:

@@ -27,6 +27,7 @@ outputs are fetched, for the evaluation loop.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Union
@@ -524,6 +525,14 @@ def make_eval_step(
     return eval_step
 
 
+def _whole_rows(model: nn.Module, mesh, bev, trans, agent_mask, store_bf16: bool = False):
+    """The model's head outputs on a rank's strip, all-gathered over the
+    ``spatial`` axis into whole maps (in fp32, exact, then back)."""
+    out = model(bev, trans, agent_mask, store_bf16=store_bf16)
+    return {k: mesh.all_gather(out[k].float(), "spatial", 2).to(out[k].dtype)
+            for k in ("cls", "reg", "head_raw") if k in out}
+
+
 def make_predict_step(model: nn.Module, config: Config, mesh=None) -> Callable:
     """The inference step: forward, scores, rotated NMS with the IoU kernel on
     the card. Returns boxes (B, A, K, 5), scores (B, A, K) and keep (B, A, K),
@@ -533,13 +542,15 @@ def make_predict_step(model: nn.Module, config: Config, mesh=None) -> Callable:
     the step returns ``(boxes, scores, keep, labels)`` with K' =
     (num_classes - 1) * K slots an agent.
 
-    ``mesh`` (data and agent axes) is attached to the model; each rank
-    predicts for its scenes and agents of a ``parallel.shard_batch``."""
+    ``mesh`` is attached to the model; each rank predicts for its scenes
+    and agents of a ``parallel.shard_batch``. Under a ``spatial`` axis the
+    head outputs are all-gathered over it before the NMS, which reads whole
+    maps, so the ranks of a strip's line return the same detections."""
+    net = model
     if mesh is not None:
-        if mesh.axis_size("spatial") > 1:
-            raise NotImplementedError("the predict step under a spatial mesh axis is not ported "
-                                      "(ROADMAP.md Queue 1, item 20)")
         attach_mesh(model, mesh)
+        if mesh.axis_size("spatial") > 1:
+            net = functools.partial(_whole_rows, model, mesh)
     anchors = torch.from_numpy(make_anchors(config)).to(next(model.parameters()).device)
 
     def predict_step(batch: Batch):
@@ -548,9 +559,9 @@ def make_predict_step(model: nn.Module, config: Config, mesh=None) -> Callable:
             mask = batch["agent_mask"].bool()
             bev = get_bev(batch, "bev", config)
             if config.num_classes == 2:
-                boxes, scores, keep = detect(model, bev, batch["trans"], mask, anchors, config)
+                boxes, scores, keep = detect(net, bev, batch["trans"], mask, anchors, config)
                 return boxes, scores, keep & mask[:, :, None]
-            out = model(bev, batch["trans"], mask, store_bf16=True)
+            out = net(bev, batch["trans"], mask, store_bf16=True)
             B, A = bev.shape[:2]
             boxes, scores, keep, labels = multiclass_nms_decode(
                 out["reg"].flatten(0, 1), out["cls"].flatten(0, 1), anchors,

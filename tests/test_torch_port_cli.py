@@ -414,16 +414,6 @@ def test_cli_kd_cycle_late_fusion_and_pose_noise(capsys, cli_data, tmp_path):
     assert _table(out) == tables["noise"]  # the noise rng is local to a run
 
 
-@pytest.mark.parametrize("main,argv,needle", [
-    (train_codet.main, ["--com", "sum", "--mesh_agent", "2"], "item 20"),
-    (train_codet.main, ["--com", "v2v", "--mesh_spatial", "2"], "item 20"),
-])
-def test_cli_refuses_what_is_not_ported(cli_data, tmp_path, main, argv, needle):
-    extra = ["--grid", "32", "--batch", "2", "--device", "cpu", "--logpath", str(tmp_path)]
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1, .*{needle}"):
-        main(["--data", cli_data, *extra, *argv])
-
-
 # ---------------------------------------------------------------------------
 # on the card, and against the JAX CLI
 

@@ -107,13 +107,15 @@ def _rank_main(rank, world, port, task, kwargs, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=SPAWN_TIMEOUT))
     try:
-        torch.save(_TASKS[task](**kwargs), os.path.join(out_dir, f"rank{rank}.pt"))
+        fn = _TASKS[task] if isinstance(task, str) else task
+        torch.save(fn(**kwargs), os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def spawn(task: str, world: int, **kwargs) -> list:
-    """``_TASKS[task](**kwargs)`` on each of ``world`` ranks of a gloo group
+def spawn(task, world: int, **kwargs) -> list:
+    """``_TASKS[task](**kwargs)`` (or ``task(**kwargs)`` for a module-level
+    function of a test module) on each of ``world`` ranks of a gloo group
     -> the ranks' results in rank order."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as out_dir:

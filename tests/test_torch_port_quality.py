@@ -88,3 +88,36 @@ def test_summary_verdicts(values, verdict, capsys):
     rows = {r["metric"]: r for r in bench_quality.summarize(results, reference)}
     assert rows["mAP@0.7"]["verdict"] == verdict
     assert rows["mAP@0.5"]["verdict"] == "inside the range"
+
+
+@pytest.mark.parametrize("hi,lo,verdict", [
+    ([0.5], [0.3], "no verdict (n<2)"),
+    ([0.5, 0.6], [0.3], "no verdict (n<2)"),
+    ([0.5], [0.3, 0.2], "no verdict (n<2)"),
+    ([0.50, 0.51], [0.30, 0.31], "SIGNIFICANT"),
+    ([0.45, 0.55], [0.44, 0.54], "within noise"),
+])
+def test_ordering_stats_matches_the_jax_harness(hi, lo, verdict):
+    """The port's copy of the JAX harness's statistic, on that harness's
+    own cases (``tests/test_bench_harness.py``), value for value."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from _bench_harness import ordering_stats as jax_ordering_stats
+
+    got, want = bench_quality.ordering_stats(hi, lo), jax_ordering_stats(hi, lo)
+    assert got["verdict"] == want["verdict"] == verdict
+    assert got == pytest.approx(want) if want["noise"] is not None else got == want
+
+
+def test_summary_orders_the_port_against_jax(capsys):
+    """The DiscoNet fault's readings: JAX's seeds 0-2 against the port's
+    first three bf16 seeds read SIGNIFICANT (gap 0.0166, noise 0.0073)."""
+    reference = {f"disco/seed{s}": {"mAP@0.5": v, "mAP@0.7": 0.2} for s, v in enumerate([0.2919, 0.3019, 0.2941])}
+    results = {f"disco/seed{s}": {"mAP@0.5": v, "mAP@0.7": 0.2} for s, v in enumerate([0.2815, 0.2854, 0.2713])}
+    rows = {r["metric"]: r for r in bench_quality.summarize(results, reference)}
+    st = rows["mAP@0.5"]["ordering"]
+    assert st["verdict"] == "SIGNIFICANT" and st["n_hi"] == st["n_lo"] == 3
+    assert st["gap"] == pytest.approx(-0.0166, abs=1e-4) and st["noise"] == pytest.approx(0.0073, abs=1e-4)
+    assert "port 0.2794 +/- 0.0059 (n=3), JAX 0.2960 +/- 0.0043 (n=3): gap -0.0166, noise 0.0073 -> SIGNIFICANT" \
+        in capsys.readouterr().out
