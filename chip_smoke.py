@@ -121,10 +121,13 @@ Phases, each printing its own line; any failure exits non-zero:
    atomics). Then every other ``--com`` (``sum``, ``mean``, ``max``,
    ``cat``, ``agent``, ``v2v``, ``when2com``, ``who2com``) under ``agent``
    2 and under ``spatial`` 2 (2 gloo ranks on the card, one spawn per
-   layout, the models in turn): one float32 train step and one ``predict``
-   of each at the same width and batch, and DiscoNet's ``predict``, against
-   the one-process step on the card: each group of layers' gradients within
-   1e-2 (relative L2), keep counts equal; a line per model with the
+   layout, the models in turn): one float32 train step, the same step
+   computed in float64 and one ``predict`` of each at the same width and
+   batch, and DiscoNet's ``predict``, against the one-process steps on the
+   card: each group of layers' gradients within 1e-2 (relative L2) in
+   float32 and within 1e-9 in float64 (the same arithmetic in another
+   order, so any sharding error above rounding breaks it), keep counts
+   equal; a line per model with the worst float32 group and the
    one-process step's own spread. Then ``train_codet --com disco
    --mesh_agent 2`` under ``torchrun`` (gloo, both ranks on the card) for
    an epoch of 1 scene x 4 frames of synthetic data at full width,
@@ -1709,20 +1712,41 @@ def _phase13(cfg):
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 13, the other fusion models: each --com's float32 train step and
-# predict under agent 2 and under spatial 2 (2 gloo ranks on the card, one
-# spawn per layout, the models in turn), DiscoNet's predict too, against the
-# one-process step on the same batch: each group of layers' gradients within
-# P13_GRAD_REL_L2, predict keep counts equal
+# phase 13, the other fusion models: each --com's float32 train step, the
+# same step in float64, and predict under agent 2 and under spatial 2 (2
+# gloo ranks on the card, one spawn per layout, the models in turn),
+# DiscoNet's predict too, against the one-process steps on the same batch:
+# each group of layers' gradients within P13_GRAD_REL_L2 in float32 and
+# P13_F64_REL in float64, predict keep counts equal
 P13_COMS = ("sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com")
 P13_LAYOUTS = (("agent=2", (1, 2, 1)), ("spatial=2", (1, 1, 2)))
+# the sharded float64 step against the one-process float64 step: the same
+# arithmetic in another order (the CPU tests read 3e-14)
+P13_F64_REL = 1e-9
+
+
+@contextlib.contextmanager
+def _float64():
+    """The float32 mode computed in float64: ``Tensor.float`` keeps float64
+    and new floating tensors default to it (the caller casts the model)."""
+    import torch
+    from unittest import mock
+
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with mock.patch.object(torch.Tensor, "float", lambda self, *a, **k: self.to(torch.float64)):
+            yield
+    finally:
+        torch.set_default_dtype(default)
 
 
 def _p13_fusion_steps(host, mesh=None, twice=False, device="cuda"):
-    """Per ``--com``: one float32 train step and one predict of the model of
-    seed 0 on ``mesh``'s slice of ``host`` (the whole batch without one;
-    ``twice``: a second step from the same weights) -> metrics and
-    gradients on the host, predict outputs; DiscoNet's predict alone."""
+    """Per ``--com``: one float32 train step, the same step in float64 and
+    one predict of the model of seed 0 on ``mesh``'s slice of ``host`` (the
+    whole batch without one; ``twice``: a second float32 step from the same
+    weights) -> metrics and gradients on the host, predict outputs;
+    DiscoNet's predict alone."""
     import copy
 
     import torch
@@ -1732,17 +1756,23 @@ def _p13_fusion_steps(host, mesh=None, twice=False, device="cuda"):
     from disconet_tpu_torch.training import batch_to_device, create_train_state, make_predict_step, make_train_step
 
     cfg = _p13_config()
+
+    def step(drawn, dtype):
+        model = copy.deepcopy(drawn).to(dtype)
+        with _float64() if dtype == torch.float64 else contextlib.nullcontext():
+            batch = batch_to_device(host, device) if mesh is None else shard_batch(host, mesh)
+            metrics = make_train_step(model, cfg, create_train_state(model), mesh=mesh)(batch)
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {k: p.grad.cpu() for k, p in model.named_parameters()}}
+
     batch = batch_to_device(host, device) if mesh is None else shard_batch(host, mesh)
     out = {}
     for com in P13_COMS:
         drawn = build_model(com, cfg, device=device, seed=0)
         res = {"predict": [t.cpu() for t in make_predict_step(copy.deepcopy(drawn), cfg, mesh)(batch)[:3]]}
         for run in ("step", "again") if twice else ("step",):
-            model = copy.deepcopy(drawn)
-            metrics = make_train_step(model, cfg, create_train_state(model), mesh=mesh)(batch)
-            res[run] = {"metrics": {k: float(v) for k, v in metrics.items()},
-                        "grads": {k: p.grad.cpu() for k, p in model.named_parameters()}}
-            del model
+            res[run] = step(drawn, torch.float32)
+        res["f64"] = step(drawn, torch.float64)
         out[com] = res
         del drawn
         if device == "cuda":
@@ -1761,7 +1791,8 @@ def _p13_fusion_check(ref, layouts):
     for com in P13_COMS + ("disco",):
         parts = []
         for name, ranks in layouts.items():
-            grad = loss = 0.0
+            grad = grad64 = loss = 0.0
+            worst = ""
             kept = unmatched = 0
             for res in ranks:
                 c = res["coords"]
@@ -1772,20 +1803,27 @@ def _p13_fusion_check(ref, layouts):
                 kept, unmatched = kept + n, unmatched + u
                 if "step" in res[com]:
                     got, exp = res[com]["step"], ref[com]["step"]
-                    grad = max(grad, max(_group_distances(got["grads"], exp["grads"]).values()))
+                    by_group = _group_distances(got["grads"], exp["grads"])
+                    g = max(by_group, key=by_group.get)
+                    if by_group[g] >= grad:
+                        grad, worst = by_group[g], g
+                    grad64 = max(grad64, max(_group_distances(res[com]["f64"]["grads"],
+                                                              ref[com]["f64"]["grads"]).values()))
                     loss = max(loss, abs(got["metrics"]["loss"] / exp["metrics"]["loss"] - 1))
-            step = f"gradients {grad:.2e}, loss {loss:.1e}, " if com != "disco" else ""
+            step = (f"gradients {grad:.2e} ({worst}), float64 {grad64:.1e}, loss {loss:.1e}, "
+                    if com != "disco" else "")
             parts.append(f"{name}: {step}keep counts equal, {unmatched}/{kept} kept boxes unmatched")
-            if grad > P13_GRAD_REL_L2:
-                past.append(f"{com} {name} {grad:.3e}")
+            if grad > P13_GRAD_REL_L2 or grad64 > P13_F64_REL:
+                past.append(f"{com} {name} {grad:.3e} (float64 {grad64:.1e})")
         floor = ""
         if "again" in ref[com]:
             f = max(_group_distances(ref[com]["again"]["grads"], ref[com]["step"]["grads"]).values())
             floor = f"; one process twice {f:.2e}"
-        print(f"parallel {com} (float32, full width, 2 gloo ranks on the card): " + "; ".join(parts)
-              + f" (gradient limit {P13_GRAD_REL_L2}{floor})")
+        print(f"parallel {com} (full width, 2 gloo ranks on the card): " + "; ".join(parts)
+              + f" (gradient limits {P13_GRAD_REL_L2}, float64 {P13_F64_REL}{floor})")
     if past:
-        raise AssertionError(f"parallel: gradients past {P13_GRAD_REL_L2} from one process: {', '.join(past)}")
+        raise AssertionError(f"parallel: gradients past {P13_GRAD_REL_L2} (float64 {P13_F64_REL}) from one "
+                             f"process: {', '.join(past)}")
 
 
 def _p13_fusion(host, work):

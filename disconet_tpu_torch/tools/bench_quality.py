@@ -308,6 +308,31 @@ def ordering_stats(hi, lo) -> dict:
             "verdict": "SIGNIFICANT" if abs(gap) > noise else "within noise"}
 
 
+def welch_test(hi, lo, alpha: float = 0.05) -> dict:
+    """Welch's t-test of the gap of two seed samples' means: the gap over
+    its standard error sqrt(s_hi^2/n_hi + s_lo^2/n_lo) (sample stds, ddof
+    1), Welch-Satterthwaite degrees of freedom, two-sided p. Beside
+    :func:`ordering_stats`, whose noise is one seed's spread and does not
+    shrink as seeds are added: this error does. SIGNIFICANT when p <
+    ``alpha``; with fewer than 2 seeds on a side, no verdict."""
+    from scipy import stats
+
+    hi, lo = np.asarray(hi, dtype=np.float64), np.asarray(lo, dtype=np.float64)
+    gap = float(np.mean(hi) - np.mean(lo))
+    n_hi, n_lo = len(hi), len(lo)
+    if n_hi < 2 or n_lo < 2:
+        return {"gap": gap, "t": None, "df": None, "p": None, "verdict": "no verdict (n<2)"}
+    v_hi, v_lo = np.var(hi, ddof=1) / n_hi, np.var(lo, ddof=1) / n_lo
+    if v_hi + v_lo == 0.0:  # both samples constant: the gap is exact
+        t = 0.0 if gap == 0.0 else float(np.copysign(np.inf, gap))
+        df, p = float(n_hi + n_lo - 2), float(gap == 0.0)
+    else:
+        t = gap / float(np.sqrt(v_hi + v_lo))
+        df = float((v_hi + v_lo) ** 2 / (v_hi ** 2 / (n_hi - 1) + v_lo ** 2 / (n_lo - 1)))
+        p = float(2 * stats.t.sf(abs(t), df))
+    return {"gap": gap, "t": t, "df": df, "p": p, "verdict": "SIGNIFICANT" if p < alpha else "not significant"}
+
+
 def mean_std(vals) -> str:
     """'mean +/- std (n)' of a seed sample, the population std."""
     v = np.asarray(list(vals), dtype=np.float64)
@@ -318,8 +343,9 @@ def summarize(results: dict, reference: dict, metrics=None) -> list:
     """Print each config's port cells beside the JAX matrix's cells of the
     same key, with the JAX seeds' range; returns the rows. A port value
     outside the range by more than the range's width is flagged. Below each
-    row, the port's and JAX's mean +/- std and :func:`ordering_stats` of
-    the port's seeds against JAX's (the row's ``ordering``). ``metrics``:
+    row, the port's and JAX's mean +/- std, :func:`ordering_stats` of the
+    port's seeds against JAX's (the row's ``ordering``) and
+    :func:`welch_test` of the same (its ``welch``). ``metrics``:
     the metrics of every config (default: mAP@0.5 and mAP@0.7, MOTA and
     MOTP for the tracking rows)."""
     rows = []
@@ -344,9 +370,11 @@ def summarize(results: dict, reference: dict, metrics=None) -> list:
             row = {"config": name, "metric": metric, "port": port, "jax": ref, "verdict": verdict}
             if ref:
                 st = row["ordering"] = ordering_stats(list(port.values()), ref)
+                w = row["welch"] = welch_test(list(port.values()), ref)
                 noise = "-" if st["noise"] is None else f"{st['noise']:.4f}"
+                welch = "" if w["p"] is None else f"t {w['t']:+.2f} (df {w['df']:.1f}), p {w['p']:.3f} "
                 print(f"{'':<18} {'':<8} port {mean_std(port.values())}, JAX {mean_std(ref)}: "
-                      f"gap {st['gap']:+.4f}, noise {noise} -> {st['verdict']}")
+                      f"gap {st['gap']:+.4f}, noise {noise} -> {st['verdict']}; Welch {welch}-> {w['verdict']}")
             rows.append(row)
     return rows
 

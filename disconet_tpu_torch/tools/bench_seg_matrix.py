@@ -68,6 +68,9 @@ SEG_ORDERINGS = [
     ("disco", "v2v"), ("disco", "when2com"), ("v2v", "when2com"),
 ]
 
+# optimizer steps a dispatch, as the JAX tool's command line fixes them
+STEPS_PER_DISPATCH = 8
+
 MIOU_RE = re.compile(r"mIoU \|\s+([\d.]+)")
 CLASS_RE = re.compile(r"^\s*(\w+) \|\s+([\d.]+)\s*$", re.M)
 
@@ -104,7 +107,7 @@ def run_cell(args, name: str, seed: int, results: dict) -> None:
         run_cli("seg.train_codet", ["--data", os.path.join(args.root, "train"), *common,
                                     "--nepoch", str(args.nepoch), "--seed", str(seed), "--logpath", logpath,
                                     "--auto_resume_path", logpath, "--ckpt_every", str(args.nepoch),
-                                    "--ckpt_keep", "1", "--steps_per_dispatch", str(args.steps_per_dispatch)],
+                                    "--ckpt_keep", "1", "--steps_per_dispatch", str(STEPS_PER_DISPATCH)],
                 log_file, args.inprocess)
         seconds["train_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -165,8 +168,6 @@ def main(argv=None):
                    choices=sorted(CONFIGS))
     p.add_argument("--nepoch", type=int, default=100)
     p.add_argument("--batch", type=int, default=4)
-    p.add_argument("--steps_per_dispatch", type=int, default=8,
-                   help="train_codet's optimizer steps per dispatch (the JAX matrix trained with 8)")
     p.add_argument("--grid", type=int, default=64)
     p.add_argument("--scenes", type=int, default=24, help="scenes per split")
     p.add_argument("--frames", type=int, default=8)
@@ -183,6 +184,7 @@ def main(argv=None):
     args.card = card() if args.device == "cuda" else args.device
     args.commit = args.commit or git_commit()
     args.source_sha1 = source_digest()
+    args.steps_per_dispatch = STEPS_PER_DISPATCH  # for the stamp
     print(f"card: {args.card}; commit {args.commit}, sources {args.source_sha1}", flush=True)
     generate(args)
     for seed in args.seeds:

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from chip_smoke import _group_distances  # encoder, decoder, heads; "fusion" the rest (weight_net)
 from disconet_tpu_torch import build_model, example_train_batch, tiny_config
 from disconet_tpu_torch.models import backbone
 from disconet_tpu_torch.parallel import (
@@ -84,12 +85,6 @@ METRIC_RTOL = 1e-5
 GRAD_NORM_RTOL = 1e-4
 GRAD_REL_L2 = 1e-2
 STATS_ATOL = 1e-5
-GROUPS = {
-    "encoder": ("stpn.stages_",),
-    "fusion": ("weight_net.",),
-    "decoder": ("stpn.dec_", "stpn.head_conv."),
-    "heads": ("heads.",),
-}
 
 
 # ---------------------------------------------------------------------------
@@ -398,15 +393,6 @@ def one_process():
     out = {"step": _step_result(student, step(batch_to_device(host, "cpu")))}
     model = build_model("disco", CFG, device="cpu", seed=0)
     out["predict"] = make_predict_step(model, CFG)(batch_to_device(host, "cpu"))
-    return out
-
-
-def _group_distances(got, want):
-    out = {}
-    for g, prefixes in GROUPS.items():
-        keys = [k for k in want if k.startswith(prefixes)]
-        num = torch.sqrt(sum(((got[k] - want[k]) ** 2).sum() for k in keys))
-        out[g] = float(num / torch.sqrt(sum((want[k] ** 2).sum() for k in keys)))
     return out
 
 

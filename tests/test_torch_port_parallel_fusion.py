@@ -3,8 +3,7 @@ gloo group, against the one-process step.
 
 One spawn of 2 ranks per layout (``tests/test_torch_port_parallel.py``'s
 ``spawn``), each running ``sum``, ``mean``, ``max``, ``cat``, ``agent``,
-``v2v``, ``when2com`` and ``who2com`` in turn, float32, 4 agents with one
-absent:
+``v2v``, ``when2com`` and ``who2com`` in turn, 4 agents with one absent:
 
 * ``agent2`` (1, 2, 1) at the 32-grid, 2 scenes;
 * ``spatial2`` (1, 1, 2) at the 64-grid, 1 scene: When2com's handshake runs
@@ -12,10 +11,13 @@ absent:
   needs a multiple of 4 rows (8 rows over 2 ranks; the 32-grid's 4 rows
   give strips of 2, which the model refuses by name).
 
-Each model's train step is held to the one-process step from the same
-weights and batch at the bounds of the DiscoNet file (metrics, each group
-of layers' gradients within 1e-2 relative L2, BatchNorm statistics), and
-its ``predict`` to the one-process ``predict`` (equal keep counts, the
+Each model's train step, the float32 mode computed in float64, is held to
+the one-process float64 step from the same weights and batch at
+``chip_smoke.P13_F64_REL``
+(metrics, each group of layers' gradients in relative L2, BatchNorm
+statistics): the sharded step is the same arithmetic in another order, so
+a sharding error of any size above rounding breaks it. Each ``predict``
+(float32) is held to the one-process ``predict`` (equal keep counts, the
 kept scores and boxes matched); DiscoNet's ``predict`` under both layouts
 too. Two planted faults break the gradient bound: the spatial mean of
 ``agent``'s scorer and When2com's handshake pool taken over a rank's strip
@@ -33,30 +35,18 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import P13_F64_REL, _float64, _group_distances  # groups: encoder, decoder, heads, "fusion" the rest
 from disconet_tpu_torch import build_model, example_train_batch, tiny_config
 from disconet_tpu_torch.models.v2v_net import V2VNet
 from disconet_tpu_torch.parallel import attach_mesh, make_mesh, shard_batch
 from disconet_tpu_torch.parallel.mesh import Mesh
 from disconet_tpu_torch.training import batch_to_device, create_train_state, make_predict_step, make_train_step
-from test_torch_port_parallel import (
-    GRAD_NORM_RTOL,
-    GRAD_REL_L2,
-    METRIC_RTOL,
-    STATS_ATOL,
-    _assert_detections_equivalent,
-    _step_result,
-    spawn,
-)
+from test_torch_port_parallel import GRAD_REL_L2, _assert_detections_equivalent, _step_result, spawn
 
 COMS = ("sum", "mean", "max", "cat", "agent", "v2v", "when2com", "who2com")
-# layout -> (n_data, n_agent, n_spatial), grid, scenes, the train steps' arithmetic
-LAYOUTS = {"agent2": ((1, 2, 1), 32, 2, "float32"), "spatial2": ((1, 1, 2), 64, 1, "float64")}
+# layout -> (n_data, n_agent, n_spatial), grid, scenes
+LAYOUTS = {"agent2": ((1, 2, 1), 32, 2), "spatial2": ((1, 1, 2), 64, 1)}
 A = 4
-# the sharded float64 step against the one-process float64 step: the same
-# arithmetic in another order (they read 1e-13)
-F64_REL = 1e-9
-# the groups of layers whose gradients are compared; "fusion" is the rest
-GROUPS = {"encoder": ("stpn.stages_",), "decoder": ("stpn.dec_", "stpn.head_conv."), "heads": ("heads.",)}
 
 
 def _config(layout: str):
@@ -65,7 +55,7 @@ def _config(layout: str):
 
 @functools.lru_cache(maxsize=None)
 def _host(layout: str):
-    _, grid, scenes, _ = LAYOUTS[layout]
+    _, grid, scenes = LAYOUTS[layout]
     host = example_train_batch(_config(layout), scenes, A, seed=3, occupancy=(0.05, 0.1), boxes_per_frame=4)
     host["agent_mask"][0, A - 1] = False  # an absent agent in every layout
     return host
@@ -125,25 +115,12 @@ def _fresh(com, cfg):
     return copy.deepcopy(_built[key])
 
 
-@contextlib.contextmanager
-def _float64():
-    """The float32 mode computed in float64: ``Tensor.float`` keeps float64
-    and new floating tensors default to it (the caller casts the model)."""
-    default = torch.get_default_dtype()
-    torch.set_default_dtype(torch.float64)
-    try:
-        with mock.patch.object(torch.Tensor, "float", lambda self, *a, **k: self.to(torch.float64)):
-            yield
-    finally:
-        torch.set_default_dtype(default)
-
-
 def _train(com, layout, mesh=None, patch=contextlib.nullcontext):
-    """One train step of ``com`` from seed 0's weights on the layout's batch
-    (this rank's slice under ``mesh``), in the layout's arithmetic."""
-    cfg, host, f64 = _config(layout), _host(layout), LAYOUTS[layout][3] == "float64"
-    model = _fresh(com, cfg).to(torch.float64 if f64 else torch.float32)
-    with _float64() if f64 else contextlib.nullcontext():
+    """One float64 train step of ``com`` from seed 0's weights on the
+    layout's batch (this rank's slice under ``mesh``)."""
+    cfg, host = _config(layout), _host(layout)
+    model = _fresh(com, cfg).to(torch.float64)
+    with _float64():
         step = make_train_step(model, cfg, create_train_state(model), mesh=mesh)
         batch = batch_to_device(host, "cpu") if mesh is None else shard_batch(host, mesh)
         with patch():
@@ -187,18 +164,6 @@ def _one_process(layout: str, com: str, what: str):
     return _oracle[key]
 
 
-def _group_distances(got, want):
-    out = {}
-    groups = {g: [k for k in want if k.startswith(p)] for g, p in GROUPS.items()}
-    taken = {k for keys in groups.values() for k in keys}
-    groups["fusion"] = [k for k in want if k not in taken]
-    for g, keys in groups.items():
-        if keys:
-            num = torch.sqrt(sum(((got[k] - want[k]) ** 2).sum() for k in keys))
-            out[g] = float(num / torch.sqrt(sum((want[k] ** 2).sum() for k in keys)))
-    return out
-
-
 # ---------------------------------------------------------------------------
 # the train and predict steps
 
@@ -208,17 +173,14 @@ def _group_distances(got, want):
 def test_sharded_train_step_equals_one_process(com, layout):
     want = _one_process(layout, com, "step")
     ranks = _layout_ranks(layout)
-    f64 = LAYOUTS[layout][3] == "float64"
     for res in ranks:  # every rank holds the global metrics, gradients and statistics
         got = res[com]["step"]
         for k, v in want["metrics"].items():
-            rtol = F64_REL if f64 else GRAD_NORM_RTOL if k == "grad_norm" else METRIC_RTOL
-            np.testing.assert_allclose(got["metrics"][k], v, rtol=rtol, err_msg=f"{com} {layout} {k}")
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=P13_F64_REL, err_msg=f"{com} {layout} {k}")
         dist_ = _group_distances(got["grads"], want["grads"])
-        assert max(dist_.values()) < (F64_REL if f64 else GRAD_REL_L2), (com, layout, dist_)
+        assert max(dist_.values()) < P13_F64_REL, (com, layout, dist_)
         for k, v in want["stats"].items():
-            np.testing.assert_allclose(got["stats"][k].numpy(), v.numpy(), atol=F64_REL if f64 else STATS_ATOL,
-                                       rtol=0, err_msg=k)
+            np.testing.assert_allclose(got["stats"][k].numpy(), v.numpy(), atol=P13_F64_REL, rtol=0, err_msg=k)
     for k, g in ranks[0][com]["step"]["grads"].items():
         assert torch.equal(g, ranks[1][com]["step"]["grads"][k]), k
 

@@ -110,14 +110,43 @@ def test_ordering_stats_matches_the_jax_harness(hi, lo, verdict):
     assert got == pytest.approx(want) if want["noise"] is not None else got == want
 
 
+@pytest.mark.parametrize("hi,lo,verdict", [
+    ([0.5], [0.3, 0.2], "no verdict (n<2)"),
+    ([0.50, 0.51, 0.52], [0.30, 0.31, 0.33], "SIGNIFICANT"),
+    ([0.45, 0.55, 0.50], [0.44, 0.54, 0.47], "not significant"),
+    ([0.2815, 0.2854, 0.2713, 0.2968, 0.3190, 0.2932, 0.2834, 0.2649, 0.2846, 0.2874], [0.2919, 0.3019, 0.2941],
+     "not significant"),
+])
+def test_welch_test_matches_scipy(hi, lo, verdict):
+    """The gap's t over its standard error (sample stds), Welch's degrees
+    of freedom and the two-sided p, as scipy's unequal-variance t-test
+    gives them; the last case is DiscoNet's ten bf16 seeds against JAX's
+    three (t -1.66, p 0.128)."""
+    from scipy import stats
+
+    got = bench_quality.welch_test(hi, lo)
+    assert got["verdict"] == verdict and got["gap"] == pytest.approx(sum(hi) / len(hi) - sum(lo) / len(lo))
+    if len(hi) > 1:
+        want = stats.ttest_ind(hi, lo, equal_var=False)
+        assert (got["t"], got["p"], got["df"]) == pytest.approx((want.statistic, want.pvalue, want.df))
+
+
+def test_welch_test_of_constant_samples():
+    assert bench_quality.welch_test([0.3, 0.3], [0.3, 0.3])["verdict"] == "not significant"
+    got = bench_quality.welch_test([0.4, 0.4], [0.3, 0.3])
+    assert got["verdict"] == "SIGNIFICANT" and got["t"] == float("inf") and got["p"] == 0.0
+
+
 def test_summary_orders_the_port_against_jax(capsys):
     """The DiscoNet fault's readings: JAX's seeds 0-2 against the port's
-    first three bf16 seeds read SIGNIFICANT (gap 0.0166, noise 0.0073)."""
+    first three bf16 seeds read SIGNIFICANT (gap 0.0166, noise 0.0073), and
+    by Welch's test too (p 0.038)."""
     reference = {f"disco/seed{s}": {"mAP@0.5": v, "mAP@0.7": 0.2} for s, v in enumerate([0.2919, 0.3019, 0.2941])}
     results = {f"disco/seed{s}": {"mAP@0.5": v, "mAP@0.7": 0.2} for s, v in enumerate([0.2815, 0.2854, 0.2713])}
     rows = {r["metric"]: r for r in bench_quality.summarize(results, reference)}
     st = rows["mAP@0.5"]["ordering"]
     assert st["verdict"] == "SIGNIFICANT" and st["n_hi"] == st["n_lo"] == 3
     assert st["gap"] == pytest.approx(-0.0166, abs=1e-4) and st["noise"] == pytest.approx(0.0073, abs=1e-4)
-    assert "port 0.2794 +/- 0.0059 (n=3), JAX 0.2960 +/- 0.0043 (n=3): gap -0.0166, noise 0.0073 -> SIGNIFICANT" \
-        in capsys.readouterr().out
+    assert rows["mAP@0.5"]["welch"]["verdict"] == "SIGNIFICANT"
+    assert ("port 0.2794 +/- 0.0059 (n=3), JAX 0.2960 +/- 0.0043 (n=3): gap -0.0166, noise 0.0073 -> SIGNIFICANT; "
+            "Welch t -3.20 (df 3.6), p 0.038 -> SIGNIFICANT") in capsys.readouterr().out
