@@ -117,8 +117,9 @@ Phases, each printing its own line; any failure exits non-zero:
    ``grad_norm`` within 1e-4, each group of layers' gradients within 1e-2
    (relative L2) and the running statistics within 1e-5, the CPU tests'
    bounds; predict keep counts equal and the kept scores within 2e-3. The
-   one-process step run twice prints the card's own spread (the warp's
-   atomics). Then every other ``--com`` (``sum``, ``mean``, ``max``,
+   one-process step run twice prints the card's own spread (0 with the
+   tap-matrix warp; the gathered warp's atomics moved it). Then every
+   other ``--com`` (``sum``, ``mean``, ``max``,
    ``cat``, ``agent``, ``v2v``, ``when2com``, ``who2com``) under ``agent``
    2 and under ``spatial`` 2 (2 gloo ranks on the card, one spawn per
    layout, the models in turn): one float32 train step, the same step
@@ -132,6 +133,25 @@ Phases, each printing its own line; any failure exits non-zero:
    --mesh_agent 2`` under ``torchrun`` (gloo, both ranks on the card) for
    an epoch of 1 scene x 4 frames of synthetic data at full width,
    auto-resumed for a second.
+
+14. the block-out decoder and the tap-matrix warp (the JAX package's
+   defaults): DiscoNet's float32 KD step at the 64-grid with both decoder
+   stages in the block-out layout (``block_out_dec1``), card against CPU at
+   phase 8's bounds; DiscoNet's bf16 K-step graph (8 steps a dispatch) run
+   twice from one seed, at the quality protocol's 64-grid (3 dispatches)
+   and at the full ``Config()`` width (1 dispatch), every parameter and
+   buffer compared with ``torch.equal``; phase 13's float32 KD step twice
+   with cuDNN's own algorithms and with deterministic ones (as
+   ``build_model`` sets them: bit-identical); the ops that
+   ``torch.use_deterministic_algorithms`` names in a single step of each,
+   and in a full-width step fused at layer 2 (64x64 cells: the gather);
+   the gather and the tap-matrix product timed in turns at 32x32 (layer 3
+   at full width) and 8x8 (layer 3 of the 64-grid) cells, training
+   (forward and backward, float32) and inference (bf16 forward); decoder
+   stage 0 at full width in both layouts, the same; DiscoNet's KD step
+   (teacher re-forward) and ``predict`` at full width against the parent's
+   layout (natural decoder, gathered warp), and the KD step with cuDNN's
+   own algorithms against deterministic ones, in turns.
 
 Phases 7, 9 and 12 also time their bf16 steps with the parent's arithmetic
 (every conv result rounded to bf16, patched in) and with the repair
@@ -148,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -276,39 +297,55 @@ def _arithmetic(arm: str):
         yield
 
 
-def _precision_ab(label, build, steps_per_call=1, calls=5, windows=4):
-    """One call of ``build()`` (under each arithmetic) -> a function that runs
-    ``steps_per_call`` train steps; both warmed up (a K-step graph captures
-    under its arithmetic), then timed in turns (parent, repair, repair,
-    parent, ...), ``windows`` windows of ``calls`` calls each with CUDA
-    events. Prints and returns the medians, ms a step."""
+def _turns(label, fns, calls=5, windows=4, unit="a step", per_call=1):
+    """``fns`` {arm: fn} (each sets its own arithmetic or layout), warmed
+    up, then timed in turns (A B, B A, ...), ``windows`` windows of
+    ``calls`` calls each with CUDA events. Prints and returns the medians,
+    ms a call divided by ``per_call`` (the steps one call runs)."""
     import statistics
 
     import torch
 
+    arms = list(fns)
+    for fn in fns.values():
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    times = {a: [] for a in arms}
+    for i in range(windows):
+        for arm in arms if i % 2 == 0 else arms[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fns[arm]()
+            end.record()
+            torch.cuda.synchronize()
+            times[arm].append(start.elapsed_time(end) / (calls * per_call))
+    med = {a: statistics.median(v) for a, v in times.items()}
+    a, b = arms
+    print(f"{label}: {a} {med[a]:.4f} ms, {b} {med[b]:.4f} ms {unit} ({100 * (med[b] / med[a] - 1):+.1f}%; "
+          f"windows " + "; ".join(f"{k} " + ", ".join(f"{w:.4f}" for w in v) for k, v in times.items())
+          + f"); {_SMI}")
+    return med
+
+
+def _precision_ab(label, build, steps_per_call=1, calls=5, windows=4):
+    """One call of ``build()`` under each arithmetic ("parent", then
+    "repair") -> a function that runs ``steps_per_call`` train steps (a
+    K-step graph captures under its arithmetic); timed in turns by
+    :func:`_turns`, each call under its arithmetic. Returns the medians, ms
+    a step."""
     fns = {}
     for arm in ("parent", "repair"):
         with _arithmetic(arm):
-            fns[arm] = build()
-            for _ in range(2):
-                fns[arm]()
-    torch.cuda.synchronize()
-    times = {"parent": [], "repair": []}
-    for i in range(windows):
-        for arm in ("parent", "repair") if i % 2 == 0 else ("repair", "parent"):
+            fn = build()
+
+        def run(fn=fn, arm=arm):
             with _arithmetic(arm):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(calls):
-                    fns[arm]()
-                end.record()
-                torch.cuda.synchronize()
-            times[arm].append(start.elapsed_time(end) / (calls * steps_per_call))
-    med = {k: statistics.median(v) for k, v in times.items()}
-    print(f"precision A/B, {label}: parent's arithmetic {med['parent']:.3f} ms, the repair {med['repair']:.3f} ms "
-          f"a step ({100 * (med['repair'] / med['parent'] - 1):+.1f}%; windows "
-          + "; ".join(f"{k} " + ", ".join(f"{w:.3f}" for w in v) for k, v in times.items()) + f"); {_SMI}")
-    return med
+                fn()
+
+        fns[arm] = run
+    return _turns(f"precision A/B, {label}", fns, calls, windows, per_call=steps_per_call)
 
 
 def _points(cfg, rng, batch, agents, n):
@@ -658,28 +695,16 @@ def main(argv) -> int:
           f"err {s_err:.3e}")
 
     # 8. one KD step on the card against the CPU, float32
-    small = tiny_config(64, compute_dtype="float32", head_raw_dtype="float32")
-    host = example_train_batch(small, 2, 3, seed=3, occupancy=(0.05, 0.1), boxes_per_frame=4)
-    steps = {}
-    for name in ("cuda", "cpu"):
-        s_model = build_model("disco", small, device=name, seed=0, kd_flag=True)
-        s_teacher = build_model("teacher", small, device=name, seed=1)
-        step = make_train_step(s_model, small, create_train_state(s_model), teacher=s_teacher, kd_flag=True)
-        b = batch_to_device(host, name)
-        steps[name] = [{k: float(v) for k, v in step(b).items()} for _ in range(2)]
-    (g1, g2), (c1, c2) = steps["cuda"], steps["cpu"]
-    rel = {k: abs(g1[k] - c1[k]) / abs(c1[k]) for k in c1}
-    rel2 = abs(g2["loss"] - c2["loss"]) / abs(c2["loss"])
-    if max(rel.values()) > 1e-4 or rel2 > 1e-3:
-        raise AssertionError(f"card vs CPU KD step: relative differences {rel}, second loss {rel2}")
-    print("card vs CPU KD step (f32, 64-grid): " + ", ".join(f"{k} {g1[k]:.6g} ({rel[k]:.1e})" for k in sorted(c1))
-          + f"; second loss {g2['loss']:.6g} ({rel2:.1e}); limits 1e-4, 1e-3")
+    _card_vs_cpu_kd_step(tiny_config(64, compute_dtype="float32", head_raw_dtype="float32"), "f32, 64-grid")
 
     cli = _phase9(cfg, host7, tb, kd_step, teacher)
     other = _phase10(cfg, host7, tb, (pts_d, trans_d, amask_d, anchors))
     packed = _phase11(cfg, model, (pts_d, trans_d, amask_d, anchors))
     kstep = _phase12(cfg, host7, teacher)
-    del teacher, kd_step, student, tb
+    del kd_step, student, tb
+    torch.cuda.empty_cache()
+    _phase14(cfg, host7, teacher, (pts_d, trans_d, amask_d, anchors))
+    del teacher
     torch.cuda.empty_cache()
     _phase13(cfg)
 
@@ -729,6 +754,30 @@ def main(argv) -> int:
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }))
     return 0
+
+
+def _card_vs_cpu_kd_step(small, label):
+    """Two float32 KD steps of DiscoNet at config ``small`` on the card and
+    on the CPU from the same weights and batch: every metric of the first
+    within 1e-4 (relative), the second loss within 1e-3."""
+    from disconet_tpu_torch import build_model, example_train_batch
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_train_step
+
+    host = example_train_batch(small, 2, 3, seed=3, occupancy=(0.05, 0.1), boxes_per_frame=4)
+    steps = {}
+    for name in ("cuda", "cpu"):
+        s_model = build_model("disco", small, device=name, seed=0, kd_flag=True)
+        s_teacher = build_model("teacher", small, device=name, seed=1)
+        step = make_train_step(s_model, small, create_train_state(s_model), teacher=s_teacher, kd_flag=True)
+        b = batch_to_device(host, name)
+        steps[name] = [{k: float(v) for k, v in step(b).items()} for _ in range(2)]
+    (g1, g2), (c1, c2) = steps["cuda"], steps["cpu"]
+    rel = {k: abs(g1[k] - c1[k]) / abs(c1[k]) for k in c1}
+    rel2 = abs(g2["loss"] - c2["loss"]) / abs(c2["loss"])
+    if max(rel.values()) > 1e-4 or rel2 > 1e-3:
+        raise AssertionError(f"card vs CPU KD step ({label}): relative differences {rel}, second loss {rel2}")
+    print(f"card vs CPU KD step ({label}): " + ", ".join(f"{k} {g1[k]:.6g} ({rel[k]:.1e})" for k in sorted(c1))
+          + f"; second loss {g2['loss']:.6g} ({rel2:.1e}); limits 1e-4, 1e-3")
 
 
 class _Frames:
@@ -1276,16 +1325,16 @@ def _phase10(cfg, host7, tb, main_path):
 
 
 # K-step graph against single steps at full width, bf16: each step's loss,
-# relative; steps 1-2, then the rest. The warp's backward adds with atomics,
-# so the two paths part from step 2 and the trajectory amplifies it: three
-# H100 runs read up to 6.3e-5 at step 2 and 3.3e-3, 6.9e-3 and 1.0e-2 by
-# step 8 (PERF.md §5). A skipped update or a stale batch moves a loss
-# by 10% or more.
+# relative; steps 1-2, then the rest. With the gathered warp at
+# this grid its backward's atomics parted the two paths from step 2 and the
+# trajectory amplified it: three H100 runs read up to 6.3e-5 at step 2 and
+# 3.3e-3, 6.9e-3 and 1.0e-2 by step 8 (PERF.md §5). A skipped update or a
+# stale batch moves a loss by 10% or more.
 K_STEP_LOSS_RTOL = (1e-3, 5e-2)
 # remat against plain, one bf16 step from the same weights: metrics
 # (relative) and each group's gradient (relative L2). The recompute repeats
-# the forward's arithmetic; the warp's atomics move the gradients: 1.1e-6
-# and 1.3e-3 (encoder) on the H100 (PERF.md §5)
+# the forward's arithmetic; the gathered warp's atomics at this grid moved
+# the gradients: 1.1e-6 and 1.3e-3 (encoder) on the H100 (PERF.md §5)
 REMAT_METRIC_RTOL = 1e-3
 REMAT_GRAD_REL = 2e-2
 K_STEPS = 8
@@ -1518,6 +1567,226 @@ def _phase12(cfg, host7, teacher):
     return {"launches": launches, "kd": kd, "seg": seg}
 
 
+# phase 14: DiscoNet's bf16 K-step graph twice from one seed: dispatches of
+# K_STEPS steps at the quality protocol's 64-grid and at full width
+P14_REPEAT_DISPATCHES = {"64-grid": 3, "full width": 1}
+
+
+@contextlib.contextmanager
+def _layout(arm: str, *models):
+    """``arm`` "parent": the layout before the tenth slice patched in, the
+    natural decoder in ``models`` and the gathered warp at every grid;
+    "block_out": the port's own (the JAX package's defaults)."""
+    from unittest import mock
+
+    from disconet_tpu_torch.models import base
+
+    prev = [m.stpn.block_out for m in models]
+    with contextlib.ExitStack() as stack:
+        if arm == "parent":
+            stack.enter_context(mock.patch.object(base, "MATMUL_WARP_CELLS", 0))
+            for m in models:
+                m.stpn.block_out = False
+        try:
+            yield
+        finally:
+            for m, p in zip(models, prev):
+                m.stpn.block_out = p
+
+
+def _nondeterministic_ops(step, batch):
+    """The ops that ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` warns about in one call of ``step(batch)``, and
+    ``torch.histc`` on the card as a control that the warnings are caught
+    (it has no deterministic implementation). Ops that have one (a gather's
+    or ``index_select``'s backward, ``index_add``) switch to it silently
+    and are not named."""
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            step(batch)
+            torch.histc(batch["trans"].flatten().float(), bins=4)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    names = set()
+    for w in rec:
+        msg = str(w.message)
+        if "does not have a deterministic implementation" in msg:
+            names.add(msg.split(" does not have")[0].strip())
+        elif "CuBLAS" in msg or "CUBLAS" in msg:
+            names.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
+    control = {n for n in names if "histc" in n}
+    return sorted(names - control), bool(control)
+
+
+def _fp32_repeat(host, deterministic):
+    """Phase 13's float32 KD step at full width run twice from the same
+    weights with ``torch.backends.cudnn.deterministic`` set as given
+    (``build_model`` sets it on): each group's gradient distance between
+    the two runs."""
+    import torch
+
+    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_train_step
+
+    cfg, batch, grads = _p13_config(), batch_to_device(host), []
+    for _ in range(2):
+        student, teacher = build_model("disco", cfg, seed=0, kd_flag=True), build_model("teacher", cfg, seed=1)
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            make_train_step(student, cfg, create_train_state(student), teacher=teacher, kd_flag=True)(batch)
+        finally:
+            torch.backends.cudnn.deterministic = True
+        grads.append({k: p.grad.cpu() for k, p in student.named_parameters()})
+    return _group_distances(grads[1], grads[0])
+
+
+def _repeat_runs(label, cfg_r, host, dispatches):
+    """DiscoNet's bf16 K-step graph from seed 0, ``dispatches`` dispatches of
+    ``K_STEPS`` steps on ``host``'s superbatch, run twice: the keys of the
+    parameters and buffers that differ (``torch.equal``) and the losses."""
+    import torch
+
+    from disconet_tpu_torch import build_model
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_train_step_multi
+
+    sb = batch_to_device(_superbatch(host, K_STEPS))
+    runs = []
+    for _ in range(2):
+        m = build_model("disco", cfg_r, seed=0)
+        multi = make_train_step_multi(m, cfg_r, create_train_state(m))
+        losses = [multi(sb)["loss"].float().cpu() for _ in range(dispatches)]
+        runs.append(({k: v.detach().clone() for k, v in m.state_dict().items()}, torch.cat(losses)))
+        del m, multi
+        torch.cuda.empty_cache()
+    (p0, l0), (p1, l1) = runs
+    differ = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    print(f"repeat {label}: 2 runs of {dispatches} x {K_STEPS} bf16 steps from seed 0, {len(p0) - len(differ)} of "
+          f"{len(p0)} parameters and buffers bit-identical; last loss {l0[-1].item():.6g} / {l1[-1].item():.6g}, "
+          f"losses equal: {torch.equal(l0, l1)}")
+    return differ
+
+
+def _phase14(cfg, host7, teacher, main_path):
+    """The block-out decoder and the tap-matrix warp (see the module
+    docstring)."""
+    import torch
+
+    from disconet_tpu_torch import build_model, example_train_batch, predict, tiny_config
+    from disconet_tpu_torch.ops.warp import warp_features, warp_features_matmul
+    from disconet_tpu_torch.training import batch_to_device, create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    # 1. the block-out float32 step, both block-out stages, against the CPU
+    _card_vs_cpu_kd_step(tiny_config(64, compute_dtype="float32", head_raw_dtype="float32", block_out_dec1=True),
+                         "f32, 64-grid, block-out stages 0 and 1")
+
+    # 2. the K-step graph twice from one seed
+    q_cfg = tiny_config(64)
+    q_host = example_train_batch(q_cfg, BATCH, AGENTS, seed=6)
+    host = {k: v for k, v in host7.items() if k != "bev_teacher"}
+    differ = {"64-grid": _repeat_runs("64-grid (quality protocol)", q_cfg, q_host, P14_REPEAT_DISPATCHES["64-grid"]),
+              "full width": _repeat_runs("full width", cfg, host, P14_REPEAT_DISPATCHES["full width"])}
+    for label, (c, h) in {"64-grid step": (q_cfg, q_host), "full-width step": (cfg, host),
+                          "full-width step at layer 2 (gather)": (dataclasses.replace(cfg, fusion_layer=2), host)
+                          }.items():
+        m = build_model("disco", c, seed=0, layer=c.fusion_layer)
+        ops, control = _nondeterministic_ops(make_train_step(m, c, create_train_state(m)), batch_to_device(h))
+        print(f"nondeterministic ops of a {label}: {ops or 'none'} (the control, histc, named: {control})")
+        del m
+    if any(differ.values()):
+        raise AssertionError(f"DiscoNet's K-step graph does not repeat: {differ}")
+    fp32 = {det: _fp32_repeat(host7, det) for det in (False, True)}
+    print("float32 KD step at full width twice, gradient distance by group: cuDNN's own algorithms "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fp32[False].items()) + "; deterministic (build_model's) "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fp32[True].items()))
+    if max(fp32[True].values()) > 0:
+        raise AssertionError(f"the float32 step does not repeat with deterministic cuDNN: {fp32[True]}")
+
+    # 3. the warp's two forms at layer 3 of full width (32x32) and of the 64-grid (8x8)
+    trans = batch_to_device(host)["trans"]
+    dev = trans.device
+    for c in (cfg, q_cfg):
+        hw = c.map_dims[0] // 8
+        label, ext = f"{hw}x{hw}", c.area_extents[:2]
+        g = torch.Generator(device=dev).manual_seed(1)
+        feats = torch.randn(BATCH, AGENTS, hw, hw, 256, device=dev, generator=g)
+        cot = torch.randn(BATCH, AGENTS, AGENTS, hw, hw, 256, device=dev, generator=g)
+        err = (warp_features_matmul(feats, trans, ext) - warp_features(feats, trans, ext)).abs().max().item()
+        fb = feats.to(torch.bfloat16)
+        err_b = (warp_features_matmul(fb, trans, ext).float() - warp_features(fb, trans, ext).float()).abs().max().item()
+        print(f"warp {label}: the product against the gather, float32 max |diff| {err:.2e}, bf16 {err_b:.2e}")
+        if err > 1e-5:
+            raise AssertionError(f"warp {label}: the product parts from the gather by {err}")
+        fr = feats.clone().requires_grad_(True)
+        train = {name: (lambda fn=fn: torch.autograd.grad(fn(fr, trans, ext), fr, cot))
+                 for name, fn in (("gather", warp_features), ("matmul", warp_features_matmul))}
+        _turns(f"warp {label}, float32 forward and backward", train, calls=10)
+        infer = {name: (lambda fn=fn: fn(fb, trans, ext))
+                 for name, fn in (("gather", warp_features), ("matmul", warp_features_matmul))}
+        _turns(f"warp {label}, bf16 forward", infer, calls=10)
+        del feats, cot, fr, fb
+
+    # 4. decoder stage 0 at full width in both layouts
+    dec = build_model("disco", cfg, seed=0).stpn.dec_0
+    n, (H, W), (c0, c1) = BATCH * AGENTS, cfg.map_dims, cfg.backbone_channels[:2]
+    x = torch.randn(n, c1, H // 2, W // 2, device=dev).contiguous(memory_format=torch.channels_last)
+    skip = torch.randn(n, c0, H, W, device=dev).contiguous(memory_format=torch.channels_last)
+    cot = torch.randn(n, c0, H, W, device=dev).contiguous(memory_format=torch.channels_last)
+    xr = x.clone().requires_grad_(True)
+    dec.train()
+    train = {arm: (lambda bo=bo: torch.autograd.grad(dec(xr, skip, block_out=bo), [xr] + list(dec.parameters()), cot))
+             for arm, bo in (("natural", False), ("block_out", True))}
+    _turns("decoder stage 0 at full width, bf16 training forward and backward", train)
+    dec.eval()
+    with torch.no_grad():
+        infer = {arm: (lambda bo=bo: dec(x, skip, store_bf16=True, block_out=bo))
+                 for arm, bo in (("natural", False), ("block_out", True))}
+        _turns("decoder stage 0 at full width, bf16 inference (store_bf16)", infer, calls=10)
+    del dec, x, skip, cot, xr
+
+    # 5. the KD step and predict at full width, the parent's layout against the port's
+    tb = batch_to_device(host7)
+    students = {arm: build_model("disco", cfg, seed=0, kd_flag=True) for arm in ("parent", "block_out")}
+    steps = {arm: make_train_step(m, cfg, create_train_state(m), teacher=teacher, kd_flag=True)
+             for arm, m in students.items()}
+
+    def kd(arm):
+        with _layout(arm, students[arm], teacher):
+            steps[arm](tb)
+
+    _turns("KD step (teacher re-forward) at full width, layout A/B", {a: functools.partial(kd, a) for a in steps})
+
+    def cudnn(det, fn):
+        torch.backends.cudnn.deterministic = det
+        try:
+            fn()
+        finally:
+            torch.backends.cudnn.deterministic = True
+
+    _turns("KD step at full width, cuDNN's own algorithms against deterministic ones",
+           {n: functools.partial(cudnn, d, functools.partial(kd, "block_out")) for n, d in (("own", False),
+                                                                                               ("deterministic", True))})
+    pts_d, trans_d, amask_d, anchors = main_path
+    model = build_model("disco", cfg, seed=0).eval()
+
+    def pred(arm):
+        with _layout(arm, model):
+            predict(model, pts_d, trans_d, amask_d, anchors, cfg)
+
+    _turns("predict at full width, layout A/B", {a: functools.partial(pred, a) for a in ("parent", "block_out")},
+           calls=20, unit="a batch")
+    del students, steps, model, tb
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
 # phase 13: the sharded steps on the card against the one-process step,
 # float32 at full width, at the CPU tests' bounds
 # (tests/test_torch_port_parallel.py): losses 1e-5, grad_norm 1e-4, each
@@ -1676,7 +1945,7 @@ def _phase13(cfg):
         ref, again = _p13_step(host), _p13_step(host)
         torch.cuda.empty_cache()
         floor = _group_distances(again["grads"], ref["grads"])
-        print("parallel: the one-process float32 KD step twice on the card (the warp's atomics), gradient "
+        print("parallel: the one-process float32 KD step twice on the card (its own spread), gradient "
               "distance by group " + ", ".join(f"{k} {v:.2e}" for k, v in floor.items())
               + f"; a step {ref['step_s'] * 1e3:.1f} ms with its first-call work")
         for name, backend, shape in P13_RUNS:

@@ -2,10 +2,11 @@
 
 The port's own copy of the JAX package's ``Config`` (the port imports nothing
 of that package). It keeps the fields the inference and training paths read
-plus the derived geometry. The TPU layout knobs (``block_space``,
-``block_out``, ``block_out_dec1``) are left out: they are exact rewrites of
-the same convs for the TPU's matrix unit and change no parameter, so the port
-always runs the natural conv layout.
+plus the derived geometry. ``block_out`` and ``block_out_dec1`` are the JAX
+package's layout of the decoder's narrow convs (``ops/blockspace.py``): they
+change no parameter, but in bf16 they change the arithmetic (summed kernel
+taps round once), so the port runs them as the JAX package does, on by
+default. ``block_space`` (off in the JAX package) is not ported.
 
 Geometry: voxel 0.25x0.25x0.4 m over x,y in [-32, 32] m and z in [-3, 2] m, a
 256x256x13 binary BEV occupancy grid; 6 rotated anchors per cell with a
@@ -89,6 +90,18 @@ class Config:
     # "bfloat16": conv inputs and weights in bf16, accumulation and BatchNorm
     # in fp32. "float32": the exact mode the parity tests run.
     compute_dtype: str = "bfloat16"
+
+    # Decoder stage 0 in the block-out layout (ops/blockspace.py): its convs
+    # emit 2x2 output blocks as channels, the first one an up-conv of the
+    # half-resolution map whose kernel sums the taps that read one source
+    # pixel, in fp32 before the bf16 rounding. The JAX package's default;
+    # False runs the natural conv of the upsampled concat. The parameters
+    # are the same either way.
+    block_out: bool = True
+
+    # The same for decoder stage 1 (needs block_out); off, as in the JAX
+    # package.
+    block_out_dec1: bool = False
 
     # Storage dtype of the packed (B*A, H, W, 48) head tensor that the NMS
     # reads. The fp32 cls/reg views are always sliced from the fp32 result.

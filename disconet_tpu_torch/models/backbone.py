@@ -23,6 +23,16 @@ its ConvBNRelu stores bf16 (see ``ConvBNRelu.forward``); the precision of
 inference does not move the detections' mAP, and this path halves the bytes
 of ``predict``'s elementwise passes.
 
+Decoder stage 0 (and stage 1 under ``block_out_dec1``) runs in the JAX
+package's default block-out layout (``config.block_out``,
+``ops/blockspace.py``): its first conv as an up-conv of the half-resolution
+map plus a stride-2 4x4 conv of the skip, its second as a stride-2 4x4 conv,
+each emitting 2x2 output blocks as channels. The kernels are transformed in
+fp32 before the operands round, so a bf16 step computes what the JAX
+package's does; XLA rounds each conv of the pair's sum to bf16 and adds in
+fp32, and the port does the same. The parameters and ``state_dict`` keys are
+the natural layout's.
+
 The other models reach these convs through ``ConvBNRelu``: the UNet's blocks,
 When2com's handshake encoders, ``cat``'s projection and ``agent``'s scorer
 (the JAX modules cast to ``compute_dtype`` there). DiscoNet's scorer's last
@@ -64,6 +74,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from disconet_tpu_torch.config import Config
+from disconet_tpu_torch.ops.blockspace import conv_block_out, conv_up_block_out, depth_to_space
 from disconet_tpu_torch.parallel.spatial import halo_exchange
 
 # flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch statistic
@@ -264,6 +275,14 @@ class ConvBNRelu(nn.Module):
     ``mesh`` (None, or a ``parallel.Mesh`` set by ``parallel.attach_mesh``)
     makes the training statistics global and, with a spatial axis, exchanges
     halo rows around the k x k conv.
+
+    ``forward``'s ``mode`` selects the conv's layout, as the JAX module's:
+    "natural"; "block_out", the 3x3 conv as ``conv_block_out``;
+    "block_out_pair", ``x`` = (x_lo, skip) and the 3x3 conv of
+    cat(upsample2x(x_lo), skip) as ``conv_up_block_out(x_lo)`` +
+    ``conv_block_out(skip)`` with the kernel split along its input axis. The
+    block outputs go back to the natural layout before the BatchNorm, whose
+    statistics cover the same pixels either way.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, bf16: bool = True):
@@ -275,25 +294,45 @@ class ConvBNRelu(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def _conv(self, x: torch.Tensor, store_bf16: bool) -> torch.Tensor:
-        """The k x k conv in the compute mode. On an H-sharded grid the strip
-        takes ``padding`` rows from each neighbour (zeros at the grid's
-        edges) and the conv pads W only."""
-        padding = self.padding
+    def _conv(self, x: torch.Tensor, store_bf16: bool, weight: Optional[torch.Tensor] = None,
+              stride: Optional[int] = None, padding: Optional[int] = None) -> torch.Tensor:
+        """The layer's k x k conv in the compute mode, or ``weight`` at
+        ``stride`` and ``padding`` (a block-out kernel). On an H-sharded grid
+        the strip takes ``padding`` rows from each neighbour (zeros at the
+        grid's edges) and the conv pads W only."""
+        w = self.weight if weight is None else weight
+        stride = self.stride if stride is None else stride
+        padding = self.padding if padding is None else padding
         if padding and self.mesh is not None and self.mesh.axis_size("spatial") > 1:
-            if self.stride == 2 and x.shape[2] % 2:
+            if stride == 2 and x.shape[2] % 2:
                 raise ValueError(f"a stride-2 conv of an H-sharded grid needs even strips, got {x.shape[2]} rows")
             x = halo_exchange(x, self.mesh.group("spatial"), padding)
             padding = (0, padding)
         if not self.bf16:
-            return F.conv2d(x.float(), self.weight, stride=self.stride, padding=padding)
+            return F.conv2d(x.float(), w, stride=stride, padding=padding)
         if store_bf16 and not self.training:  # inference: cuDNN's bf16 conv, bf16 out
-            return F.conv2d(x.to(torch.bfloat16), self.weight.to(torch.bfloat16),
-                            stride=self.stride, padding=padding)
-        return conv2d_bf16_operands(x, self.weight, self.stride, padding)
+            return F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), stride=stride, padding=padding)
+        return conv2d_bf16_operands(x, w, stride, padding)
+
+    def _layout_conv(self, x, store_bf16: bool, mode: str) -> torch.Tensor:
+        """The conv of ``forward`` in ``mode``'s layout, natural out."""
+        if mode == "natural":
+            return self._conv(x, store_bf16)
+        conv = lambda t, w, stride, padding: self._conv(t, store_bf16, w, stride, padding)  # noqa: E731
+        if mode == "block_out":
+            return depth_to_space(conv_block_out(x, self.weight, conv))
+        if mode != "block_out_pair":
+            raise ValueError(f"unknown conv layout {mode!r}")
+        x_lo, skip = x
+        c_lo = x_lo.shape[1]
+        y = conv_up_block_out(x_lo, self.weight[:, :c_lo], conv)
+        z = conv_block_out(skip, self.weight[:, c_lo:], conv)
+        if self.bf16 and not (store_bf16 and not self.training):
+            y, z = _round_bf16(y), _round_bf16(z)  # as XLA keeps the pair's convs
+        return depth_to_space(y + z)
 
     def forward(
-        self, x: torch.Tensor, store_bf16: bool = False, sample_mask: Optional[torch.Tensor] = None
+        self, x, store_bf16: bool = False, sample_mask: Optional[torch.Tensor] = None, mode: str = "natural"
     ) -> torch.Tensor:
         """(N, Cin, H, W) -> (N, Cout, H', W'), fp32; bf16 in the bf16 mode
         when ``store_bf16`` is set in eval mode. In training with a
@@ -312,7 +351,7 @@ class ConvBNRelu(nn.Module):
         teacher and evaluation leave it off, so the KD taps that the feature
         MSE reads at ``kd_weight`` 1e5 are fp32.
         """
-        y = self._conv(x, store_bf16)
+        y = self._layout_conv(x, store_bf16, mode)
         bn = self.BatchNorm_0
         if self.training:
             if sample_mask is not None:  # over the channel-last view, then back
@@ -373,24 +412,34 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class _DecoderStage(nn.Module):
-    """Upsample 2x, concat the skip, two ConvBNRelu."""
+    """Upsample 2x, concat the skip, two ConvBNRelu; with ``block_out`` the
+    same convs in the block-out layout (the upsample and the concat are
+    never built)."""
 
     def __init__(self, c_deep: int, c_skip: int, cout: int, bf16: bool):
         super().__init__()
         self.ConvBNRelu_0 = ConvBNRelu(c_deep + c_skip, cout, bf16=bf16)
         self.ConvBNRelu_1 = ConvBNRelu(cout, cout, bf16=bf16)
 
-    def forward(self, x, skip, store_bf16: bool = False):
+    def forward(self, x, skip, store_bf16: bool = False, block_out: bool = False):
+        if block_out:
+            y = self.ConvBNRelu_0((x, skip), store_bf16, mode="block_out_pair")
+            return self.ConvBNRelu_1(y, store_bf16, mode="block_out")
         x = torch.cat([upsample2x(x), skip.to(x.dtype)], dim=1)
         return self.ConvBNRelu_1(self.ConvBNRelu_0(x, store_bf16), store_bf16)
 
 
 class STPN(nn.Module):
-    """Staged encoder (strides 1, 2, 4, 8, 16) and skip decoder to the head map."""
+    """Staged encoder (strides 1, 2, 4, 8, 16) and skip decoder to the head
+    map. ``block_out`` runs decoder stage 0 in the block-out layout, and
+    stage 1 too with ``block_out_dec1`` (the JAX ``STPN.decode_step``)."""
 
-    def __init__(self, in_channels: int, channels: Sequence[int], head_channels: int, bf16: bool):
+    def __init__(self, in_channels: int, channels: Sequence[int], head_channels: int, bf16: bool,
+                 block_out: bool = False, block_out_dec1: bool = False):
         super().__init__()
         self.channels = tuple(channels)
+        self.block_out = block_out
+        self.block_out_dec1 = block_out_dec1
         prev = in_channels
         for i, c in enumerate(self.channels):
             self.add_module(f"stages_{i}", _EncoderStage(prev, c, 1 if i == 0 else 2, bf16))
@@ -424,7 +473,9 @@ class STPN(nn.Module):
         x = feats[-1]
         taps = []
         for i in reversed(range(len(self.channels) - 1)):
-            x = stage(functools.partial(getattr(self, f"dec_{i}"), store_bf16=store_bf16), x, feats[i])
+            block_out = self.block_out and (i == 0 or (i == 1 and self.block_out_dec1))
+            dec = functools.partial(getattr(self, f"dec_{i}"), store_bf16=store_bf16, block_out=block_out)
+            x = stage(dec, x, feats[i])
             taps.append(x)
         head_in = stage(functools.partial(self.head_conv, store_bf16=store_bf16 and not head_fp32), x)
         taps.append(head_in)
@@ -489,6 +540,7 @@ def make_stpn(config: Config) -> STPN:
     return STPN(
         config.bev_shape[2], config.backbone_channels, config.head_channels,
         bf16=config.compute_dtype == "bfloat16",
+        block_out=config.block_out, block_out_dec1=config.block_out_dec1,
     )
 
 

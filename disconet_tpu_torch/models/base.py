@@ -21,9 +21,12 @@ JAX package warps at inference on the TPU; its scorer casts to bf16 anyway.
 Every other fusion model keeps the fusion-layer map fp32
 (``fusion_store_bf16`` False): V2VNet's hidden state, When2com's unwarped
 values and the naive sums, means and maxima read it as the JAX package's do.
-Training and the KD teacher store fp32 throughout. The warp's backward is an
-``index_add`` into the sampled map (atomics on the card), so its gradient is
-not bit-reproducible from run to run there.
+Training and the KD teacher store fp32 throughout. The warp is the JAX
+package's dispatch (``warp_all_pairs``): the product with the dense tap
+matrix at fusion grids of up to 1024 cells (every layer of the 64-grid and
+layer 3 of the 256-grid), whose backward repeats bit for bit on the card; the
+gather above that, whose backward is an ``index_add`` into the sampled map
+(atomics on the card) and does not.
 
 Under a device mesh (``parallel.attach_mesh``) a rank holds its scenes,
 agents and BEV rows. With an agent or a spatial axis the fusion-layer maps
@@ -54,9 +57,13 @@ import torch.nn as nn
 from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.models.backbone import SegHead, make_heads, make_stpn, stage
 from disconet_tpu_torch.models.unet import make_unet, use_unet
-from disconet_tpu_torch.ops.warp import warp_features
+from disconet_tpu_torch.ops.warp import warp_features, warp_features_matmul
 
 TASKS = ("det", "seg")
+
+# fusion grids up to this many cells warp by the tap-matrix product (the JAX
+# package's ``warp_all_pairs``: its (Ar, As, cells, cells) matrix stays small)
+MATMUL_WARP_CELLS = 1024
 
 
 def agents_to_batch(x: torch.Tensor) -> torch.Tensor:
@@ -73,9 +80,11 @@ def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple,
                    rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Every sender's map in every receiver's frame: feats (B, As, h, w, C),
     trans (B, Ar, As, 4, 4) -> (B, Ar, As, h, w, C), zeros outside each
-    sender's field of view (the gather form of ``ops/warp.py``); ``rows``
-    computes only those receiver rows."""
-    return warp_features(feats, trans, extent_xy, rows)
+    sender's field of view; ``rows`` computes only those receiver rows. The
+    tap-matrix product of ``ops/warp.py`` while h*w <= ``MATMUL_WARP_CELLS``,
+    else the gather, as the JAX package dispatches."""
+    impl = warp_features_matmul if feats.shape[2] * feats.shape[3] <= MATMUL_WARP_CELLS else warp_features
+    return impl(feats, trans, extent_xy, rows)
 
 
 def sender_softmax(scores: torch.Tensor, agent_mask: torch.Tensor) -> torch.Tensor:

@@ -89,7 +89,9 @@ def build_model(
 
     Sets the process's TF32 switches off, for both cuDNN convolutions and
     matrix products: the float32 mode is then exact float32, and the bf16
-    mode's fp32 products of bf16-rounded operands stay exact.
+    mode's fp32 products of bf16-rounded operands stay exact. Sets cuDNN to
+    deterministic algorithms: with its own choice for float32 convs a
+    training step does not repeat bit for bit on the card.
     """
     com = (com or "").lower()
     if gru_rounds and com != "v2v":
@@ -103,6 +105,7 @@ def build_model(
     dev = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     if com == "teacher":
         model = TeacherNet(config, task=task)
     elif com in _SINGLE_AGENT:

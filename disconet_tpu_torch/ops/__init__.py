@@ -1,4 +1,4 @@
-"""Box codec, voxelizer, rotated IoU, NMS, late fusion and pose warp of the port."""
+"""Box codec, voxelizer, rotated IoU, NMS, late fusion, pose warp and block-out conv rewrites of the port."""
 
 from disconet_tpu_torch.ops.nms import (  # noqa: F401
     foreground_scores,

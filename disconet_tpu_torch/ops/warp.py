@@ -5,6 +5,14 @@ metric y, as the voxelizer lays them out. ``trans[i, j]`` maps homogeneous
 sender-j coordinates into receiver i's frame: p_i = T_ij @ p_j. Sampling is
 bilinear with zero padding at cell centres; this module holds the only copy of
 that half-pixel convention (so it does not call ``F.grid_sample``).
+
+Two forms compute the warp, as in the JAX package: :func:`warp_features`
+gathers the four taps of each receiver cell, :func:`warp_features_matmul`
+multiplies by the dense (receiver cells x sender cells) tap matrix. The JAX
+package takes the product at fusion grids of up to 1024 cells
+(``models/base.py::warp_all_pairs``). The gather's backward adds into the
+sampled map with atomics on the card; the product's backward is a product,
+in a fixed order.
 """
 
 from __future__ import annotations
@@ -12,6 +20,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from disconet_tpu_torch.device import exact_products
 
 
 def pose_to_affine(trans: torch.Tensor) -> torch.Tensor:
@@ -113,3 +123,59 @@ def warp_features(
     out += tap(x0i, y0i + 1, wx0 * wy1)
     out += tap(x0i + 1, y0i + 1, wx1 * wy1)
     return out.to(feats.dtype).reshape(tuple(lead) + (Ar, A) + tuple(px.shape[-2:]) + (C,))
+
+
+def warp_features_matmul(
+    feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple[Tuple[float, float], ...],
+    rows: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """:func:`warp_features` as a product with the dense tap matrix, the JAX
+    package's ``warp_features_matmul``: same arguments and output.
+
+    For every (scene, receiver, sender) the (Hr*W, H*W) matrix holds each
+    receiver cell's four bilinear weights at its taps' sender cells, built in
+    float32; a tap outside the sender's map has weight 0. The product
+    accumulates in float32. With bf16 ``feats`` the matrix is rounded to
+    bf16 and the output too (the JAX package's TPU arithmetic: bf16 products,
+    an fp32 accumulator); float32 ``feats`` give float32 products on the card
+    as on the CPU (no TF32).
+    """
+    *lead, A, H, W, C = feats.shape
+    Ar = trans.shape[-4]
+    nb = 1
+    for d in lead:
+        nb *= d
+    px, py = _sample_coords(trans.reshape(nb, Ar, A, 4, 4), extent_xy, H, W, rows)  # (nb, Ar, A, Hr, W)
+    Hr = px.shape[-2]
+    # one product per (scene, sender): the senders' axis ahead of the receivers'
+    px = px.transpose(1, 2).reshape(nb, A, Ar * Hr * W)
+    py = py.transpose(1, 2).reshape(nb, A, Ar * Hr * W)
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    wx1 = px - x0
+    wy1 = py - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    cells, weights = [], []
+    for xi, yi, w in ((x0i, y0i, (1 - wx1) * (1 - wy1)), (x0i + 1, y0i, wx1 * (1 - wy1)),
+                      (x0i, y0i + 1, (1 - wx1) * wy1), (x0i + 1, y0i + 1, wx1 * wy1)):
+        inb = (xi >= 0) & (xi < H) & (yi >= 0) & (yi < W)
+        cells.append(xi.clamp(0, H - 1) * W + yi.clamp(0, W - 1))
+        weights.append(w * inb.to(w.dtype))
+    # each in-map tap lands on a cell of its own; an outside tap adds 0
+    # where it is clamped, so the sum is the tap's weight in any order
+    dt = torch.float64 if feats.dtype == torch.float64 else torch.float32
+    taps = torch.zeros(nb, A, Ar * Hr * W, H * W, device=feats.device, dtype=dt)
+    taps.scatter_add_(-1, torch.stack(cells, dim=-1), torch.stack(weights, dim=-1).to(dt))
+    values = feats.reshape(nb * A, H * W, C)
+    taps = taps.reshape(nb * A, Ar * Hr * W, H * W)
+    with exact_products(feats):
+        if feats.dtype == torch.bfloat16:
+            taps = taps.to(torch.bfloat16)
+            if feats.device.type == "cuda":
+                out = torch.bmm(taps, values)
+            else:  # the CPU's bf16 products through fp32 (exact), rounded once
+                out = torch.bmm(taps.float(), values.float()).to(torch.bfloat16)
+        else:
+            out = torch.bmm(taps, values.to(dt)).to(feats.dtype)
+    out = out.reshape(nb, A, Ar, Hr, W, C).transpose(1, 2).contiguous()
+    return out.reshape(tuple(lead) + (Ar, A, Hr, W, C))

@@ -331,8 +331,9 @@ class _StepGraph:
     metrics live in the graph's private pool. A replay copies the next
     superbatch into the static input and runs the K steps with one launch.
 
-    The warp's backward adds with atomics, so two replays of the same steps
-    are not bit-identical."""
+    At fusion grids of up to 1024 cells (the warp's tap-matrix product) two
+    runs of the same steps from one seed are bit-identical; above them the
+    gathered warp's backward adds with atomics, and they are not."""
 
     WARMUP = 3
 

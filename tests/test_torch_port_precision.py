@@ -17,8 +17,9 @@ the same (``models/backbone.py::conv2d_bf16_operands``).
   parent's result rounding breaks. Both packages round the cotangents of
   every conv to bf16, so the fp32-level differences of the two steps (the
   BatchNorm variance's formula, summation orders) move roundings and the
-  distances stay far above fp32's. JAX runs its natural conv layout
-  (``block_out=False``), the layout the port implements.
+  distances stay far above fp32's. Both packages run the natural conv
+  layout (``block_out=False``); ``test_torch_port_blockspace.py`` holds the
+  block-out layout, the default of both.
 """
 
 import jax
@@ -107,7 +108,7 @@ def test_result_rounding_breaks_the_conv_limits(stride):
 
 
 JCFG16 = jax_tiny_config(32, head_raw_dtype="float32", block_out=False)
-TCFG16 = tiny_config(32, head_raw_dtype="float32")
+TCFG16 = tiny_config(32, head_raw_dtype="float32", block_out=False)
 JSTUDENT16 = jax_build_model("disco", JCFG16, kd_flag=True)
 JTEACHER16 = JaxTeacherNet(config=JCFG16)
 
