@@ -6,7 +6,10 @@ plus the derived geometry. ``block_out`` and ``block_out_dec1`` are the JAX
 package's layout of the decoder's narrow convs (``ops/blockspace.py``): they
 change no parameter, but in bf16 they change the arithmetic (summed kernel
 taps round once), so the port runs them as the JAX package does, on by
-default. ``block_space`` (off in the JAX package) is not ported.
+default. ``block_space`` (off, as in the JAX package) runs encoder stage 0
+and decoder stage 0 on the space-to-depth map instead; it changes no
+parameter either. ``ConfigGlobal`` is the teacher's configuration, the JAX
+package's name for the same geometry.
 
 Geometry: voxel 0.25x0.25x0.4 m over x,y in [-32, 32] m and z in [-3, 2] m, a
 256x256x13 binary BEV occupancy grid; 6 rotated anchors per cell with a
@@ -103,9 +106,26 @@ class Config:
     # package.
     block_out_dec1: bool = False
 
+    # Encoder stage 0 and decoder stage 0 in 2x2 block space
+    # (ops/blockspace.py): the input is space-to-depth'ed once, stage 0's
+    # convs run on (4*C)-channel blocks, stage 1's stride-2 conv reads the
+    # blocks and writes the natural map, and decoder stage 0's output goes
+    # back by one depth-to-space. The same parameters as the natural layout;
+    # in bf16 the same values (every block-kernel entry is one tap). It
+    # rewrites the convs that block_out does, so it turns block_out and
+    # block_out_dec1 off; fusion at layer 0 keeps the natural layout (the
+    # fused map must be addressable by space). Off, as in the JAX package.
+    block_space: bool = False
+
     # Storage dtype of the packed (B*A, H, W, 48) head tensor that the NMS
     # reads. The fp32 cls/reg views are always sliced from the fp32 result.
     head_raw_dtype: str = "bfloat16"
+
+    # Storage dtype of the head conv's output, the head input: "bfloat16"
+    # rounds it once; the bf16 detection heads round their input anyway, so
+    # their outputs are bit-identical, while the KD taps and the SegHead
+    # read the rounded map. "float32" (the JAX package's default) keeps it.
+    head_in_dtype: str = "float32"
 
     # Inference dtype of DiscoNet's fusion-layer map, which the all-pairs
     # warp samples: "bfloat16" stores it in bf16 under ``store_bf16`` (the
@@ -160,6 +180,15 @@ class Config:
         ys = y_lo + (np.arange(gy, dtype=np.float32) + 0.5) * vy
         cx, cy = np.meshgrid(xs, ys, indexing="ij")
         return np.stack([cx, cy], axis=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConfigGlobal(Config):
+    """The teacher's configuration (the reference's ConfigGlobal): the
+    holistic view is voxelized into the same grid, so only the name
+    differs."""
+
+    split: str = "train"
 
 
 # Footprints of the synthetic data's vehicle classes, class id (1-based) ->

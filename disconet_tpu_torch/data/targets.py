@@ -140,3 +140,10 @@ def sparse_targets(reg_mask: np.ndarray, reg_target: np.ndarray, max_pos: int) -
     idx[: len(nz)] = nz
     target[: len(nz)] = np.asarray(reg_target, np.float32).reshape(-1, code)[nz]
     return idx, target
+
+
+def anchors_from_map(anchors_map: np.ndarray) -> np.ndarray:
+    """(H, W, A, 6) stored (cx, cy, w, l, sin, cos) -> (H, W, A, 5) with the
+    angle theta = arctan2(sin, cos)."""
+    theta = np.arctan2(anchors_map[..., 4], anchors_map[..., 5])
+    return np.concatenate([anchors_map[..., :4], theta[..., None]], axis=-1)

@@ -33,6 +33,16 @@ package's does; XLA rounds each conv of the pair's sum to bf16 and adds in
 fp32, and the port does the same. The parameters and ``state_dict`` keys are
 the natural layout's.
 
+``config.block_space`` runs encoder stage 0 and decoder stage 0 on the
+space-to-depth map instead (``STPN.encode``/``decode``): stage 0's convs as
+block-space 3x3 convs, stage 1's stride-2 conv as a 2x2 conv from the blocks
+to the natural map, decoder stage 0 on the half-resolution map broadcast to
+the four offsets beside the block skip. Their BatchNorms reduce over the four
+offsets, so the statistics and parameters are the natural layer's. A
+block-space kernel places taps and sums none, so the bf16 forward is the
+natural one's; the kernel's backward sums a tap's four places in bf16, as
+XLA's transpose of the JAX package's placement does (``ops/blockspace.py``).
+
 The other models reach these convs through ``ConvBNRelu``: the UNet's blocks,
 When2com's handshake encoders, ``cat``'s projection and ``agent``'s scorer
 (the JAX modules cast to ``compute_dtype`` there). DiscoNet's scorer's last
@@ -74,7 +84,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from disconet_tpu_torch.config import Config
-from disconet_tpu_torch.ops.blockspace import conv_block_out, conv_up_block_out, depth_to_space
+from disconet_tpu_torch.ops.blockspace import (
+    conv_block_out,
+    conv_block_s1,
+    conv_block_s2,
+    conv_up_block_out,
+    depth_to_space,
+    space_to_depth,
+)
 from disconet_tpu_torch.parallel.spatial import halo_exchange
 
 # flax momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch statistic
@@ -219,8 +236,9 @@ def _global_moments(x_sum: torch.Tensor, sq_sum: torch.Tensor, count: torch.Tens
 
 
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d, mesh=None) -> torch.Tensor:
-    """Batch-statistics BatchNorm of (N, C, H, W) fp32 ``y``; updates ``bn``'s
-    running statistics with the biased variance.
+    """Batch-statistics BatchNorm of (N, C, ...) fp32 ``y`` (the block layout's
+    (N, C, 4, P, Q) view too); updates ``bn``'s running statistics with the
+    biased variance.
 
     ``F.batch_norm`` normalizes with the biased variance and, given running
     buffers, blends the unbiased one into them. With momentum 1 into fresh
@@ -232,12 +250,13 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d, mesh=None) -> torch.Te
     """
     C = y.shape[1]
     if mesh is not None:
-        red = (0, 2, 3)
+        red = (0,) + tuple(range(2, y.dim()))
         mean, ex2 = _global_moments(y.sum(red), y.square().sum(red), y.new_tensor(y.numel() // C), mesh)
         var = torch.clamp(ex2 - mean.square(), min=0.0)
         _update_running(bn, mean, var)
-        scale = (bn.weight * torch.rsqrt(var + bn.eps))[:, None, None]
-        return (y - mean[:, None, None]) * scale + bn.bias[:, None, None]
+        per_c = (C,) + (1,) * (y.dim() - 2)
+        scale = (bn.weight * torch.rsqrt(var + bn.eps)).reshape(per_c)
+        return (y - mean.reshape(per_c)) * scale + bn.bias.reshape(per_c)
     n = y.numel() // C
     mean = torch.zeros(C, device=y.device)
     var = torch.zeros(C, device=y.device)
@@ -282,7 +301,10 @@ class ConvBNRelu(nn.Module):
     cat(upsample2x(x_lo), skip) as ``conv_up_block_out(x_lo)`` +
     ``conv_block_out(skip)`` with the kernel split along its input axis. The
     block outputs go back to the natural layout before the BatchNorm, whose
-    statistics cover the same pixels either way.
+    statistics cover the same pixels either way. "block": block input
+    (N, 4*Cin, P, Q) and output (N, 4*Cout, P, Q), ``conv_block_s1``, the
+    BatchNorm over the four offsets of each channel; "block_to_natural": the
+    stride-2 conv of a block input, ``conv_block_s2``, natural output.
     """
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, bf16: bool = True):
@@ -321,6 +343,10 @@ class ConvBNRelu(nn.Module):
         conv = lambda t, w, stride, padding: self._conv(t, store_bf16, w, stride, padding)  # noqa: E731
         if mode == "block_out":
             return depth_to_space(conv_block_out(x, self.weight, conv))
+        if mode == "block":
+            return conv_block_s1(x, self.weight, conv, bf16=self.bf16)
+        if mode == "block_to_natural":
+            return conv_block_s2(x, self.weight, conv, bf16=self.bf16)
         if mode != "block_out_pair":
             raise ValueError(f"unknown conv layout {mode!r}")
         x_lo, skip = x
@@ -352,6 +378,14 @@ class ConvBNRelu(nn.Module):
         MSE reads at ``kd_weight`` 1e5 are fp32.
         """
         y = self._layout_conv(x, store_bf16, mode)
+        if mode == "block":  # (N, 4C, P, Q) as (N, C, 4, P, Q): each channel's four offsets
+            N, C4, P, Q = y.shape
+            z = self._bn_relu(y.reshape(N, 4, C4 // 4, P, Q).transpose(1, 2), sample_mask)
+            return z.transpose(1, 2).reshape(N, C4, P, Q)
+        return self._bn_relu(y, sample_mask)
+
+    def _bn_relu(self, y: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """BatchNorm and ReLU of the conv's (N, C, ...) result (``forward``)."""
         bn = self.BatchNorm_0
         if self.training:
             if sample_mask is not None:  # over the channel-last view, then back
@@ -397,13 +431,20 @@ class ConvBNRelu(nn.Module):
 
 
 class _EncoderStage(nn.Module):
+    """Two ConvBNRelu; ``mode`` applies to both ("natural", "block" or
+    "block_out", the JAX module's), and ``transition`` makes the first
+    (stride-2) conv read block space and write the natural map (the stage
+    after a block-space stage 0)."""
+
     def __init__(self, cin: int, cout: int, stride: int, bf16: bool):
         super().__init__()
         self.ConvBNRelu_0 = ConvBNRelu(cin, cout, stride=stride, bf16=bf16)
         self.ConvBNRelu_1 = ConvBNRelu(cout, cout, bf16=bf16)
 
-    def forward(self, x, store_bf16: bool = False):
-        return self.ConvBNRelu_1(self.ConvBNRelu_0(x, store_bf16), store_bf16)
+    def forward(self, x, store_bf16: bool = False, mode: str = "natural", transition: bool = False):
+        first = "block_to_natural" if transition else mode
+        x = self.ConvBNRelu_0(x, store_bf16, mode=first)
+        return self.ConvBNRelu_1(x, store_bf16, mode="natural" if transition else mode)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -412,34 +453,56 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class _DecoderStage(nn.Module):
-    """Upsample 2x, concat the skip, two ConvBNRelu; with ``block_out`` the
-    same convs in the block-out layout (the upsample and the concat are
-    never built)."""
+    """Upsample 2x, concat the skip, two ConvBNRelu. ``mode`` "block_out":
+    the same convs in the block-out layout (the upsample and the concat are
+    never built); "block": the skip is in block space, the half-resolution
+    ``x`` is broadcast to the four offsets and concatenated with each
+    offset's skip channels (the upsample of a block is one source pixel),
+    and both convs run in block space; the output stays in block space."""
 
     def __init__(self, c_deep: int, c_skip: int, cout: int, bf16: bool):
         super().__init__()
         self.ConvBNRelu_0 = ConvBNRelu(c_deep + c_skip, cout, bf16=bf16)
         self.ConvBNRelu_1 = ConvBNRelu(cout, cout, bf16=bf16)
 
-    def forward(self, x, skip, store_bf16: bool = False, block_out: bool = False):
-        if block_out:
+    def forward(self, x, skip, store_bf16: bool = False, mode: str = "natural"):
+        if mode == "block_out":
             y = self.ConvBNRelu_0((x, skip), store_bf16, mode="block_out_pair")
             return self.ConvBNRelu_1(y, store_bf16, mode="block_out")
-        x = torch.cat([upsample2x(x), skip.to(x.dtype)], dim=1)
-        return self.ConvBNRelu_1(self.ConvBNRelu_0(x, store_bf16), store_bf16)
+        if mode == "block":
+            N, Cx, P, Q = x.shape
+            xb = x.permute(0, 2, 3, 1)[:, :, :, None, :].expand(N, P, Q, 4, Cx)
+            sb = skip.to(x.dtype).permute(0, 2, 3, 1).reshape(N, P, Q, 4, -1)
+            x = torch.cat([xb, sb], dim=-1).reshape(N, P, Q, -1).permute(0, 3, 1, 2)
+        else:
+            x = torch.cat([upsample2x(x), skip.to(x.dtype)], dim=1)
+        return self.ConvBNRelu_1(self.ConvBNRelu_0(x, store_bf16, mode=mode), store_bf16, mode=mode)
 
 
 class STPN(nn.Module):
     """Staged encoder (strides 1, 2, 4, 8, 16) and skip decoder to the head
     map. ``block_out`` runs decoder stage 0 in the block-out layout, and
-    stage 1 too with ``block_out_dec1`` (the JAX ``STPN.decode_step``)."""
+    stage 1 too with ``block_out_dec1`` (the JAX ``STPN.decode_step``);
+    ``block_out_encoder`` encoder stage 0 too. ``block_space`` runs encoder
+    stage 0 and decoder stage 0 in block space: the input is
+    space-to-depth'ed once, ``feats[0]`` is block-shaped (N, 4*C0, H/2,
+    W/2), and decoder stage 0's output goes back by one depth-to-space. It
+    rewrites the convs that the block-out modes do, so it excludes them.
+    ``head_in_dtype`` "bfloat16" stores the head input in bf16."""
 
     def __init__(self, in_channels: int, channels: Sequence[int], head_channels: int, bf16: bool,
-                 block_out: bool = False, block_out_dec1: bool = False):
+                 block_out: bool = False, block_out_dec1: bool = False, block_space: bool = False,
+                 block_out_encoder: bool = False, head_in_dtype: str = "float32"):
         super().__init__()
+        if block_space and (block_out or block_out_encoder):
+            raise ValueError("block_space and block_out are alternative rewrites of the same stage-0 convs; "
+                             "enable at most one")
         self.channels = tuple(channels)
         self.block_out = block_out
         self.block_out_dec1 = block_out_dec1
+        self.block_space = block_space
+        self.block_out_encoder = block_out_encoder
+        self.head_in_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[head_in_dtype]
         prev = in_channels
         for i, c in enumerate(self.channels):
             self.add_module(f"stages_{i}", _EncoderStage(prev, c, 1 if i == 0 else 2, bf16))
@@ -458,8 +521,15 @@ class STPN(nn.Module):
         layer of the models that fuse fp32 maps, ``models/base.py``)."""
         feats = []
         for i in range(len(self.channels)):
+            kw = {}
+            if self.block_space and i == 0:
+                x, kw = space_to_depth(x), {"mode": "block"}
+            elif self.block_space and i == 1:
+                kw = {"transition": True}
+            elif self.block_out_encoder and i == 0:
+                kw = {"mode": "block_out"}
             block = getattr(self, f"stages_{i}")
-            x = stage(functools.partial(block, store_bf16=store_bf16 and i != fp32_stage), x)
+            x = stage(functools.partial(block, store_bf16=store_bf16 and i != fp32_stage, **kw), x)
             feats.append(x)
         return feats
 
@@ -473,11 +543,19 @@ class STPN(nn.Module):
         x = feats[-1]
         taps = []
         for i in reversed(range(len(self.channels) - 1)):
-            block_out = self.block_out and (i == 0 or (i == 1 and self.block_out_dec1))
-            dec = functools.partial(getattr(self, f"dec_{i}"), store_bf16=store_bf16, block_out=block_out)
+            mode = "natural"
+            if self.block_space and i == 0:
+                mode = "block"
+            elif self.block_out and (i == 0 or (i == 1 and self.block_out_dec1)):
+                mode = "block_out"
+            dec = functools.partial(getattr(self, f"dec_{i}"), store_bf16=store_bf16, mode=mode)
             x = stage(dec, x, feats[i])
+            if mode == "block":
+                x = depth_to_space(x)
             taps.append(x)
         head_in = stage(functools.partial(self.head_conv, store_bf16=store_bf16 and not head_fp32), x)
+        if self.head_in_dtype != torch.float32:
+            head_in = head_in.to(self.head_in_dtype)
         taps.append(head_in)
         return head_in, taps
 
@@ -536,11 +614,19 @@ class SegHead(nn.Module):
         return x.permute(0, 2, 3, 1).float() @ w.t() + self.Conv_0.bias
 
 
-def make_stpn(config: Config) -> STPN:
+def make_stpn(config: Config, allow_block: bool = True) -> STPN:
+    """The config's STPN. ``allow_block`` False keeps the natural layout
+    where ``config.block_space`` asks for block space (fusion at layer 0,
+    whose fused map must be addressable by space); an explicit
+    ``block_space`` turns the block-out modes off (they rewrite the same
+    convs), as the JAX ``make_stpn`` does."""
+    block_space = allow_block and config.block_space
     return STPN(
         config.bev_shape[2], config.backbone_channels, config.head_channels,
         bf16=config.compute_dtype == "bfloat16",
-        block_out=config.block_out, block_out_dec1=config.block_out_dec1,
+        block_out=config.block_out and not block_space,
+        block_out_dec1=config.block_out_dec1 and not block_space,
+        block_space=block_space, head_in_dtype=config.head_in_dtype,
     )
 
 

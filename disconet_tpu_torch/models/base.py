@@ -24,9 +24,8 @@ values and the naive sums, means and maxima read it as the JAX package's do.
 Training and the KD teacher store fp32 throughout. The warp is the JAX
 package's dispatch (``warp_all_pairs``): the product with the dense tap
 matrix at fusion grids of up to 1024 cells (every layer of the 64-grid and
-layer 3 of the 256-grid), whose backward repeats bit for bit on the card; the
-gather above that, whose backward is an ``index_add`` into the sampled map
-(atomics on the card) and does not.
+layer 3 of the 256-grid), the gather above that; the backward of either
+repeats bit for bit on the card (``ops/warp.py``).
 
 Under a device mesh (``parallel.attach_mesh``) a rank holds its scenes,
 agents and BEV rows. With an agent or a spatial axis the fusion-layer maps
@@ -117,9 +116,10 @@ def bev_to_batch(bev: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
-def attach_backbone_and_heads(model: nn.Module, config: Config, task: str) -> None:
+def attach_backbone_and_heads(model: nn.Module, config: Config, task: str, allow_block: bool = True) -> None:
     """``model.stpn`` (the UNet for seg with ``seg_backbone`` "unet", else the
-    STPN) and ``model.heads`` (det) or ``model.seg_head`` (seg)."""
+    STPN, in block space where ``config.block_space`` and ``allow_block``
+    say so) and ``model.heads`` (det) or ``model.seg_head`` (seg)."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
     model.task = task
@@ -127,7 +127,7 @@ def attach_backbone_and_heads(model: nn.Module, config: Config, task: str) -> No
         model.stpn = make_unet(config)
         head_in = config.unet_channels[0]
     else:
-        model.stpn = make_stpn(config)
+        model.stpn = make_stpn(config, allow_block)
         head_in = config.head_channels
     if task == "det":
         model.heads = make_heads(config)
@@ -167,7 +167,8 @@ class IntermediateFusionModel(nn.Module):
         self.mesh = None  # a parallel.Mesh, set by parallel.attach_mesh
         # whether fuse reads the warped maps (When2com without warp_flag does not)
         self.uses_warp = True
-        attach_backbone_and_heads(self, config, task)
+        # fusion at layer 0 replaces stage 0's map, which must stay addressable by space
+        attach_backbone_and_heads(self, config, task, allow_block=layer != 0)
 
     @property
     def layer_channels(self) -> int:

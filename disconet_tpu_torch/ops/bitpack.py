@@ -21,6 +21,11 @@ def pack_bev_np(bev: np.ndarray) -> np.ndarray:
     return np.packbits(np.asarray(bev) != 0, axis=-1)
 
 
+def packed_width(z: int) -> int:
+    """Bytes of a packed z-column of ``z`` voxels."""
+    return (z + 7) // 8
+
+
 def unpack_bev(packed: torch.Tensor, z: int) -> torch.Tensor:
     """(..., ceil(Z/8)) uint8 -> (..., Z) float32 on ``packed``'s device.
 

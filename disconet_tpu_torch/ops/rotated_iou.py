@@ -10,6 +10,9 @@
 * :func:`rotated_iou_matrix` — the wrapper: CUDA tensors go to the
   hand-written kernel (``csrc/rotated_iou.cu``), CPU tensors to the plain
   version.
+* :func:`rotated_iou_pairs` — (P, 5) x (P, 5) -> (P,), the IoU of each pair
+  of rows by the plain version's arithmetic, on the boxes' device (the JAX
+  package computes its paired IoU in jnp, not in Pallas).
 * :func:`rotated_iou_pairs_np` and :func:`rotated_iou_matrix_np` — host numpy
   in float64, the JAX package's copies for target assignment, the mAP and
   late fusion: the polygon of edge crossings and corners inside the other
@@ -87,11 +90,9 @@ def _check(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
         raise ValueError("boxes_a and boxes_b lie on different devices")
 
 
-def rotated_iou_matrix_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """(B, N, 5) x (B, M, 5) -> (B, N, M) float32 rotated IoU, plain PyTorch."""
-    _check(boxes_a, boxes_b)
-    a = [t[:, :, None] for t in boxes_a.unbind(-1)]  # (B, N, 1)
-    b = [t[:, None, :] for t in boxes_b.unbind(-1)]  # (B, 1, M)
+def _iou(a, b):
+    """IoU of the boxes whose fields ``a`` and ``b`` (cx, cy, w, l, theta)
+    broadcast against each other."""
     ca, cb = _corners(*a), _corners(*b)
     inter = _pieces_area(ca, cb, _TOL) + _pieces_area(cb, ca, -_TOL)
     inter = torch.clamp(inter, min=0.0)
@@ -99,6 +100,23 @@ def rotated_iou_matrix_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> to
     union = area_a + area_b - inter
     ok = (area_a > 0) & (area_b > 0) & (union > 1e-8)
     return torch.where(ok, inter / union, torch.zeros_like(inter))
+
+
+def rotated_iou_matrix_plain(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(B, N, 5) x (B, M, 5) -> (B, N, M) float32 rotated IoU, plain PyTorch."""
+    _check(boxes_a, boxes_b)
+    return _iou([t[:, :, None] for t in boxes_a.unbind(-1)], [t[:, None, :] for t in boxes_b.unbind(-1)])
+
+
+def rotated_iou_pairs(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(P, 5) x (P, 5) -> (P,) float32 rotated IoU of row i of ``boxes_a``
+    with row i of ``boxes_b``: :func:`rotated_iou_matrix_plain`'s
+    arithmetic on the pairs, on the boxes' device."""
+    if boxes_a.dim() != 2 or boxes_a.shape != boxes_b.shape:
+        raise ValueError(f"paired boxes must be two (P, 5) tensors, got {tuple(boxes_a.shape)} and "
+                         f"{tuple(boxes_b.shape)}")
+    _check(boxes_a[None], boxes_b[None])
+    return _iou(boxes_a.unbind(-1), boxes_b.unbind(-1))
 
 
 @functools.cache

@@ -5,14 +5,19 @@ metric y, as the voxelizer lays them out. ``trans[i, j]`` maps homogeneous
 sender-j coordinates into receiver i's frame: p_i = T_ij @ p_j. Sampling is
 bilinear with zero padding at cell centres; this module holds the only copy of
 that half-pixel convention (so it does not call ``F.grid_sample``).
+:func:`affine_grid` and :func:`grid_sample` are the JAX package's
+torch-convention primitives (normalized coordinates), kept as the public
+API; they are ``F.affine_grid`` and ``F.grid_sample`` (bilinear, zero
+padding), which the JAX package wrote them to equal.
 
 Two forms compute the warp, as in the JAX package: :func:`warp_features`
 gathers the four taps of each receiver cell, :func:`warp_features_matmul`
 multiplies by the dense (receiver cells x sender cells) tap matrix. The JAX
 package takes the product at fusion grids of up to 1024 cells
-(``models/base.py::warp_all_pairs``). The gather's backward adds into the
-sampled map with atomics on the card; the product's backward is a product,
-in a fixed order.
+(``models/base.py::warp_all_pairs``). Both backwards repeat bit for bit on
+the card: the product's is a product, and the gather's adds every tap's
+cotangent into the sampled map by a sort of the tap rows (:class:`_GatherTaps`),
+in an order that the indices fix, not the threads' timing.
 """
 
 from __future__ import annotations
@@ -20,8 +25,22 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from disconet_tpu_torch.device import exact_products
+
+
+def affine_grid(theta: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
+    """(N, 2, 3) affine matrices over normalized coordinates and a
+    torch-style (N, C, H, W) ``size`` -> the (N, H, W, 2) sampling grid, last
+    axis (x, y) in [-1, 1]."""
+    return F.affine_grid(theta, list(size), align_corners=align_corners)
+
+
+def grid_sample(input_nchw: torch.Tensor, grid: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """Bilinear sample of (N, C, H, W) at the (N, Ho, Wo, 2) normalized
+    (x, y) ``grid`` (x indexes W), zeros outside -> (N, C, Ho, Wo)."""
+    return F.grid_sample(input_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=align_corners)
 
 
 def pose_to_affine(trans: torch.Tensor) -> torch.Tensor:
@@ -70,6 +89,42 @@ def _sample_coords(trans: torch.Tensor, extent_xy, H: int, W: int, rows: Optiona
     return px, py
 
 
+class _GatherTaps(torch.autograd.Function):
+    """The four bilinear taps of every receiver cell: table (T, C), rows,
+    spread and weights (4, R) -> (R, C), sum_k table[rows[k]] * weights[k]
+    added in tap order, in float32 (or float64) whatever the table's dtype.
+
+    The backward adds each tap's cotangent ``g * weights[k]`` into a (T, C)
+    table with one ``index_put_(accumulate=True)``, which on the card sorts
+    the rows (a stable radix sort) and adds each row's contributions in that
+    order: two runs add in one order, so they repeat bit for bit, where
+    ``index_select``'s backward (``index_add``) adds with atomics. A tap
+    outside the sender's map reads a clamped edge row with weight 0; its
+    zero cotangent goes to ``spread`` instead, the tap's cell wrapped into
+    the map, so that no edge row collects thousands of them (the sort adds
+    a row's contributions one after another). The poses get no gradient:
+    they are data."""
+
+    @staticmethod
+    def forward(ctx, table, rows, spread, weights):
+        if weights.requires_grad:
+            raise ValueError("the gathered warp gives no gradient to the poses")
+        out = table.index_select(0, rows[0]) * weights[0, :, None]
+        for k in range(1, 4):
+            out += table.index_select(0, rows[k]) * weights[k, :, None]
+        ctx.save_for_backward(spread, weights)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        spread, weights = ctx.saved_tensors
+        C = g.shape[-1]
+        grad = g.new_zeros(ctx.table_shape)
+        grad.index_put_((spread.reshape(-1),), (g[None] * weights[..., None]).reshape(-1, C), accumulate=True)
+        return grad.to(ctx.table_dtype), None, None, None
+
+
 def warp_features(
     feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple[Tuple[float, float], ...],
     rows: Optional[Tuple[int, int]] = None,
@@ -109,19 +164,14 @@ def warp_features(
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
     x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
-
-    def tap(xi, yi, w):
+    cells, spread, weights = [], [], []
+    for xi, yi, w in ((x0i, y0i, wx0 * wy0), (x0i + 1, y0i, wx1 * wy0),
+                      (x0i, y0i + 1, wx0 * wy1), (x0i + 1, y0i + 1, wx1 * wy1)):
         inb = (xi >= 0) & (xi < H) & (yi >= 0) & (yi < W)
-        xc = xi.clamp(0, H - 1)
-        yc = yi.clamp(0, W - 1)
-        rows = (base + xc * W + yc).reshape(-1)
-        vals = flat.index_select(0, rows).reshape(px.shape + (C,))
-        return vals * (w * inb.to(w.dtype))[..., None]
-
-    out = tap(x0i, y0i, wx0 * wy0)
-    out += tap(x0i + 1, y0i, wx1 * wy0)
-    out += tap(x0i, y0i + 1, wx0 * wy1)
-    out += tap(x0i + 1, y0i + 1, wx1 * wy1)
+        cells.append((base + xi.clamp(0, H - 1) * W + yi.clamp(0, W - 1)).reshape(-1))
+        spread.append((base + (xi % H) * W + (yi % W)).reshape(-1))
+        weights.append((w * inb.to(w.dtype)).reshape(-1))
+    out = _GatherTaps.apply(flat, torch.stack(cells), torch.stack(spread), torch.stack(weights))
     return out.to(feats.dtype).reshape(tuple(lead) + (Ar, A) + tuple(px.shape[-2:]) + (C,))
 
 

@@ -9,19 +9,33 @@ the JAX package's ``tools/bench_quality.py``.
 Each (config, seed) cell trains through the port's ``train_codet`` (``--nepoch``
 epochs at ``--batch``, ``--steps_per_dispatch`` steps a dispatch, 8 by
 default as the JAX matrix trained, the final epoch's checkpoint only:
-``--ckpt_every nepoch --ckpt_keep 1``) and evaluates that checkpoint on the val split
-through ``test_codet``. ``--track_evals`` adds, for the trained configs of
-``TRACK_EVALS``, ``test_codet --tracking --split val`` -> ``sort`` ->
-``eval_mot`` in the config's own tracking log path. The data are the JAX
-protocol's: ``create_data_det --occlusion 1`` at ``--grid 64``, 24 train and
-24 val scenes of 8 frames, the files the JAX generator writes.
+``--ckpt_every nepoch --ckpt_keep 1``; ``--max_pos`` passes through) and
+evaluates that checkpoint on the val split through ``test_codet``.
+``--save_best 1`` trains with ``train_codet --save_best 1`` and measures the
+checkpoint of the lowest end-of-epoch loss (``best.pth``), and the final
+one beside it (the cell's ``final`` entry); the default, 0, is the final
+checkpoint, as the committed port and JAX ``disco``/``lowerbound`` cells
+were measured. Every cell stamps ``"ckpt": "best"|"final"``.
+``--track_evals`` adds, for the trained configs of ``TRACK_EVALS``,
+``test_codet --tracking --split val`` -> ``sort`` -> ``eval_mot`` in the
+config's own tracking log path. ``--extra_evals`` adds the eval-only rows of
+``EXTRA_EVALS`` (pose noise, late fusion) over the trained checkpoints of
+their base configs, training a base whose checkpoint is gone (that training
+writes no cell). The data are the JAX protocol's: ``create_data_det
+--occlusion 1`` at ``--grid 64``, 24 train and 24 val scenes of 8 frames, the
+files the JAX generator writes.
 
 Results accumulate in ``--out`` under the JAX matrix's keys
-(``disco/seed0``, ``disco+track/seed0``); a key already there is skipped, so
-the cells can run over several calls. Every cell stamps the card
+(``disco/seed0``, ``disco+track/seed0``, ``disco+noise/seed0``); a key
+already there is skipped, so the cells can run over several calls, and
+processes that share an ``--out`` (say, one per group of seeds on one card)
+add their cells under a file lock. Every cell stamps the card
 (``nvidia-smi`` name and power limit), the commit, a digest of the port's
 sources and its wall seconds. ``--summarize`` prints the port's cells beside
-the JAX matrix's (``results/occluded_matrix.json``).
+the JAX matrix's (``results/occluded_matrix.json``), then the JAX harness's
+``ORDERINGS`` (mAP) and ``TRACK_ORDERINGS`` (MOTA) between the port's
+configs whose cells exist, with ``ordering_stats``, Welch's test and each
+side's seeds.
 
 The CLIs run as ``python -m`` processes, or in this process with
 ``--inprocess`` (the tests). ``--device`` passes through; the card by default.
@@ -31,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import fcntl
 import hashlib
 import importlib
 import io
@@ -64,6 +79,12 @@ CONFIGS = {
     "v2v_l2": ["--com", "v2v", "--layer", "2"],
     "when2com_l2": ["--com", "when2com", "--layer", "2"],
     "who2com_l2": ["--com", "who2com", "--layer", "2"],
+    "disco_l2_norsu": ["--com", "disco", "--rsu", "0", "--layer", "2"],
+    # disco_l2 trained again in a directory of its own (the JAX matrix's
+    # trajectory check of its packed loss)
+    "disco_l2_hv": ["--com", "disco", "--layer", "2"],
+    # V2VNet with one ConvGRU round instead of three
+    "v2v_l2_r1": ["--com", "v2v", "--layer", "2", "--gru_rounds", "1"],
 }
 # configs whose train log directory ({com}[_kd]) another config shares: they
 # train under a log path of their own
@@ -74,12 +95,56 @@ MODE_DIR = {
     "v2v_l2": "v2v",
     "when2com_l2": "when2com",
     "who2com_l2": "who2com",
+    "disco_l2_norsu": "disco",
+    "disco_l2_hv": "disco",
+    "v2v_l2_r1": "v2v",
 }
 TRACK_EVALS = ("disco_kd", "disco", "lowerbound")
+
+# eval-only rows: (base config, extra test_codet flags) over the base's
+# trained checkpoint, the JAX harness's: pose noise of 0.4 m and 4 degrees
+# (--pose_noise_rot_std is in radians), and late fusion
+_ROT_4DEG = f"{4 * math.pi / 180:.6f}"
+EXTRA_EVALS = {
+    "disco_kd+noise": ("disco_kd", ["--pose_noise_std", "0.4", "--pose_noise_rot_std", _ROT_4DEG]),
+    "disco+noise": ("disco", ["--pose_noise_std", "0.4", "--pose_noise_rot_std", _ROT_4DEG]),
+    "disco_kd+latefuse": ("disco_kd", ["--apply_late_fusion", "1"]),
+}
+
+# (hi, lo) ordering claims of the JAX harness, checked by --summarize on mAP
+ORDERINGS = [
+    ("upperbound", "lowerbound"), ("disco_kd", "disco"),
+    ("disco", "lowerbound"), ("disco_kd", "lowerbound"),
+    ("v2v", "when2com"), ("when2com", "lowerbound"),
+    ("disco", "disco_norsu"),
+    ("disco_l2", "disco"), ("disco_l2", "lowerbound"),
+    ("disco_kd_l2", "disco_kd"), ("disco_kd_l2", "disco_l2"),
+    ("disco_kd_l2", "lowerbound"), ("v2v_l2", "v2v"),
+    ("v2v_l2", "lowerbound"), ("disco_l2", "v2v_l2"),
+    ("v2v_l2", "when2com_l2"), ("when2com_l2", "lowerbound"),
+    ("disco_l2", "when2com_l2"),
+    ("disco_norsu", "lowerbound"),
+    ("disco_l2", "disco_l2_norsu"), ("disco_l2_norsu", "lowerbound"),
+    ("disco_l2_hv", "lowerbound"), ("disco_l2_hv", "disco_l2"),
+    ("who2com_l2", "lowerbound"), ("when2com_l2", "who2com_l2"),
+    ("disco_l2", "who2com_l2"),
+    ("v2v_l2_r1", "lowerbound"), ("v2v_l2", "v2v_l2_r1"),
+    ("disco_l2", "v2v_l2_r1"),
+    ("disco_kd+noise", "lowerbound"), ("disco_kd", "disco_kd+noise"),
+    ("disco+noise", "lowerbound"), ("disco_kd+latefuse", "disco_kd"),
+]
+# the same on MOTA over the --track_evals rows
+TRACK_ORDERINGS = [
+    ("disco_kd+track", "lowerbound+track"),
+    ("disco_kd+track", "disco+track"),
+    ("disco+track", "lowerbound+track"),
+]
 
 AVG_RE = re.compile(r"average \|\s+([\d.]+) \|\s+([\d.]+) \|\s+(\d+) \|\s+(\d+)")
 MOT_AVG_RE = re.compile(r"avg \|\s+(-?[\d.]+) \|\s+([\d.]+)")
 EPOCH_LOSS_RE = re.compile(r"epoch \d+ done .*?(?<![\w])loss=(-?nan|-?inf|[\d.eE+-]+)")
+# train_codet --save_best's record line (the last one names best.pth's epoch)
+BEST_CKPT_RE = re.compile(r"best checkpoint: epoch (\d+) loss=(-?nan|-?inf|[\d.eE+-]+)")
 # a non-finite epoch loss in the JSON: large enough to flag the cell
 NONFINITE_LOSS = 1e30
 
@@ -143,15 +208,30 @@ def run_cli(module: str, argv, log_file: str, inprocess: bool) -> str:
 
 def epoch_loss_stats(log_file: str) -> dict:
     """{final_epoch_loss, min_epoch_loss} of the last train run in the log."""
-    with open(log_file) as f:
-        text = f.read()
-    starts = [m.end() for m in re.finditer(r"^\$ .*train_codet.*$", text, re.M)]
-    text = text[starts[-1]:] if starts else text
     losses = []
-    for m in EPOCH_LOSS_RE.finditer(text):
+    for m in EPOCH_LOSS_RE.finditer(_last_train_run(log_file)):
         v = float(m.group(1))
         losses.append(v if math.isfinite(v) else NONFINITE_LOSS)
     return {"final_epoch_loss": losses[-1], "min_epoch_loss": min(losses)} if losses else {}
+
+
+def _last_train_run(log_file: str) -> str:
+    """The log from the last ``train_codet`` command on."""
+    with open(log_file) as f:
+        text = f.read()
+    starts = [m.end() for m in re.finditer(r"^\$ .*train_codet.*$", text, re.M)]
+    return text[starts[-1]:] if starts else text
+
+
+def best_ckpt_stats(log_file: str) -> dict:
+    """{best_epoch, best_epoch_loss} of the last train run's ``--save_best``
+    record, or {}."""
+    hits = BEST_CKPT_RE.findall(_last_train_run(log_file))
+    if not hits:
+        return {}
+    epoch, loss = hits[-1]
+    loss = float(loss)
+    return {"best_epoch": int(epoch), "best_epoch_loss": loss if math.isfinite(loss) else NONFINITE_LOSS}
 
 
 def load_results(path: str) -> dict:
@@ -170,12 +250,28 @@ def save_results(results: dict, path: str) -> None:
     os.replace(path + ".tmp", path)
 
 
-def stamp(args, flags, seconds: dict) -> dict:
+def record(path: str, key: str, value: dict, results: dict) -> None:
+    """Add the cell ``key`` to ``results`` and to the file ``path``, under
+    an exclusive lock on ``path.lock``: the file is read again, so the cells
+    other processes added since stay."""
+    results[key] = value
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            cells = load_results(path)
+            cells[key] = value
+            save_results(cells, path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def stamp(args, flags, seconds: dict, ckpt: str = "final") -> dict:
     layer = int(flags[flags.index("--layer") + 1]) if "--layer" in flags else None
     # "sha", "grid", "nepoch": the stamp of every results/ matrix cell
     return {"card": args.card, "sha": args.commit, "source_sha1": args.source_sha1,
             "device": args.device, "grid": args.grid, "nepoch": args.nepoch, "batch": args.batch,
-            "steps_per_dispatch": args.steps_per_dispatch, "layer": layer, "ckpt": "final",
+            "steps_per_dispatch": args.steps_per_dispatch, "layer": layer, "ckpt": ckpt,
             **{k: round(v, 1) for k, v in seconds.items()}}
 
 
@@ -189,6 +285,45 @@ def cell_dirs(args, name: str, seed: int):
 
 def final_ckpt(args, name: str, seed: int) -> str:
     return os.path.join(cell_dirs(args, name, seed)[1], f"epoch_{args.nepoch}.pth")
+
+
+def best_ckpt(args, name: str, seed: int) -> str:
+    return os.path.join(cell_dirs(args, name, seed)[1], "best.pth")
+
+
+def measured_ckpt(args, name: str, seed: int, results: dict) -> str:
+    """The checkpoint a row derived from the trained cell ``name`` reads:
+    the one the cell was measured on (its ``ckpt`` stamp), else the one
+    ``--save_best`` picks."""
+    cell = results.get(f"{name}/seed{seed}")
+    kind = cell["prov"]["ckpt"] if cell else ("best" if args.save_best else "final")
+    return best_ckpt(args, name, seed) if kind == "best" else final_ckpt(args, name, seed)
+
+
+def train(args, name: str, seed: int, log_file: str) -> bool:
+    """Train the cell ``name`` at ``seed`` where its checkpoints are gone (a
+    KD cell's teacher, its seed's final ``upperbound``, first); whether it
+    trained."""
+    need = [final_ckpt(args, name, seed)] + ([best_ckpt(args, name, seed)] if args.save_best else [])
+    if all(os.path.exists(p) for p in need):
+        return False
+    flags = list(CONFIGS[name])
+    if "--kd_flag" in flags:  # the same seed's trained upperbound teaches
+        teacher = final_ckpt(args, "upperbound", seed)
+        if not os.path.exists(teacher):
+            up_logpath = cell_dirs(args, "upperbound", seed)[0]
+            os.makedirs(up_logpath, exist_ok=True)
+            train(args, "upperbound", seed, os.path.join(up_logpath, "upperbound.log"))
+        flags += ["--resume_teacher", teacher]
+    run_cli("det.train_codet", ["--data", os.path.join(args.root, "train"), *flags,
+                                "--batch", str(args.batch), "--nepoch", str(args.nepoch),
+                                "--grid", str(args.grid), "--seed", str(seed),
+                                "--logpath", cell_dirs(args, name, seed)[0],
+                                "--ckpt_every", str(args.nepoch), "--ckpt_keep", "1",
+                                "--steps_per_dispatch", str(args.steps_per_dispatch),
+                                "--save_best", str(args.save_best), "--max_pos", str(args.max_pos),
+                                "--device", args.device], log_file, args.inprocess)
+    return True
 
 
 def test_flags(name: str):
@@ -219,31 +354,21 @@ def run_cell(args, name: str, seed: int, results: dict) -> None:
     logpath, _ = cell_dirs(args, name, seed)
     os.makedirs(logpath, exist_ok=True)
     log_file = os.path.join(logpath, f"{name}.log")
-    flags = list(CONFIGS[name])
-    if "--kd_flag" in flags:  # the same seed's trained upperbound teaches
-        teacher = final_ckpt(args, "upperbound", seed)
-        if not os.path.exists(teacher):
-            raise RuntimeError(f"{key}: no teacher checkpoint {teacher}; run upperbound first")
-        flags += ["--resume_teacher", teacher]
     t0 = time.perf_counter()
-    ckpt = final_ckpt(args, name, seed)
     seconds = {}
-    if not os.path.exists(ckpt):
-        run_cli("det.train_codet", ["--data", os.path.join(args.root, "train"), *flags,
-                                    "--batch", str(args.batch), "--nepoch", str(args.nepoch),
-                                    "--grid", str(args.grid), "--seed", str(seed), "--logpath", logpath,
-                                    "--ckpt_every", str(args.nepoch), "--ckpt_keep", "1",
-                                    "--steps_per_dispatch", str(args.steps_per_dispatch),
-                                    "--device", args.device], log_file, args.inprocess)
+    if train(args, name, seed, log_file):
         seconds["train_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    cell = evaluate(args, name, ckpt, log_file)
+    kind = "best" if args.save_best else "final"
+    cell = evaluate(args, name, measured_ckpt(args, name, seed, results), log_file)
+    if args.save_best:  # the final checkpoint beside the best
+        cell.update(best_ckpt_stats(log_file))
+        cell["final"] = evaluate(args, name, final_ckpt(args, name, seed), log_file)
     seconds["eval_s"] = time.perf_counter() - t1
     seconds["wall_s"] = time.perf_counter() - t0
     cell.update(epoch_loss_stats(log_file))
-    cell["prov"] = stamp(args, flags, seconds)
-    results[key] = cell
-    save_results(results, args.out)
+    cell["prov"] = stamp(args, CONFIGS[name], seconds, kind)
+    record(args.out, key, cell, results)
     print(f"[done] {key}: {cell}", flush=True)
 
 
@@ -255,15 +380,27 @@ def run_track(args, base: str, seed: int, results: dict) -> None:
     if key in results:
         print(f"[skip] {key}", flush=True)
         return
-    ckpt = final_ckpt(args, base, seed)
+    ckpt = measured_ckpt(args, base, seed, results)
     if not os.path.exists(ckpt):
         print(f"[miss] {key}: no {ckpt}", flush=True)
         return
     logpath, _ = cell_dirs(args, base, seed)
     log_file = os.path.join(logpath, f"{base}+track.log")
-    track_logpath = os.path.join(logpath, "track", base)
-    mode = "disco" if base.startswith("disco") else base
     t0 = time.perf_counter()
+    kind = "best" if ckpt == best_ckpt(args, base, seed) else "final"
+    cell = track(args, base, ckpt, log_file, os.path.join(logpath, "track", base))
+    if kind == "best":  # the final checkpoint beside the best, as the cell
+        cell["final"] = track(args, base, final_ckpt(args, base, seed), log_file,
+                              os.path.join(logpath, "track_final", base))
+    cell["prov"] = stamp(args, CONFIGS[base], {"wall_s": time.perf_counter() - t0}, kind)
+    record(args.out, key, cell, results)
+    print(f"[done] {key}: {results[key]}", flush=True)
+
+
+def track(args, base: str, ckpt: str, log_file: str, track_logpath: str) -> dict:
+    """{MOTA, MOTP} of ``test_codet --tracking`` -> ``sort`` -> ``eval_mot``
+    on ``ckpt``, the dumps under ``track_logpath``."""
+    mode = "disco" if base.startswith("disco") else base
     evaluate(args, base, ckpt, log_file, ["--tracking", "--split", "val", "--logpath", track_logpath])
     dumps = os.path.join(track_logpath, mode, "with_rsu", "val", "det_dumps")
     tracks = os.path.join(os.path.dirname(dumps), "tracks")
@@ -272,11 +409,33 @@ def run_track(args, base: str, seed: int, results: dict) -> None:
                                      "--grid", str(args.grid)], log_file, args.inprocess)
     m = MOT_AVG_RE.search(out)
     if not m:
-        raise RuntimeError(f"no CLEAR-MOT avg row for {key} (see {log_file})")
-    results[key] = {"MOTA": float(m.group(1)), "MOTP": float(m.group(2)),
-                    "prov": stamp(args, CONFIGS[base], {"wall_s": time.perf_counter() - t0})}
-    save_results(results, args.out)
-    print(f"[done] {key}: {results[key]}", flush=True)
+        raise RuntimeError(f"no CLEAR-MOT avg row in {log_file}")
+    return {"MOTA": float(m.group(1)), "MOTP": float(m.group(2))}
+
+
+def run_extra(args, name: str, seed: int, results: dict) -> None:
+    """The eval-only row ``name`` of ``EXTRA_EVALS`` at ``seed``: its base
+    config's measured checkpoint, trained first where it is gone (that
+    training writes no cell), evaluated with the row's extra flags."""
+    key = f"{name}/seed{seed}"
+    if key in results:
+        print(f"[skip] {key}", flush=True)
+        return
+    base, extra = EXTRA_EVALS[name]
+    logpath, _ = cell_dirs(args, base, seed)
+    os.makedirs(logpath, exist_ok=True)
+    log_file = os.path.join(logpath, f"{name}.log")
+    t0 = time.perf_counter()
+    ckpt = measured_ckpt(args, base, seed, results)
+    seconds = {}
+    if not os.path.exists(ckpt) and train(args, base, seed, os.path.join(logpath, f"{base}.log")):
+        seconds["train_s"] = time.perf_counter() - t0
+    cell = evaluate(args, base, ckpt, log_file, extra)
+    seconds["wall_s"] = time.perf_counter() - t0
+    kind = "best" if ckpt == best_ckpt(args, base, seed) else "final"
+    cell["prov"] = {**stamp(args, CONFIGS[base] + extra, seconds, kind), "base": base}
+    record(args.out, key, cell, results)
+    print(f"[done] {key}: {cell}", flush=True)
 
 
 def generate(args) -> None:
@@ -379,6 +538,39 @@ def summarize(results: dict, reference: dict, metrics=None) -> list:
     return rows
 
 
+def seed_values(results: dict, name: str, metric: str) -> list:
+    """``metric`` of every seed of the config ``name``, in seed order."""
+    cells = {int(k.split("/seed")[1]): v for k, v in results.items()
+             if "/seed" in k and k.split("/")[0] == name and metric in v}
+    return [cells[s][metric] for s in sorted(cells)]
+
+
+def summarize_orderings(results: dict) -> list:
+    """Print ``ORDERINGS`` (mAP@0.5 and mAP@0.7) and ``TRACK_ORDERINGS``
+    (MOTA) between the port's configs whose cells exist: each side's mean
+    and seeds, :func:`ordering_stats` and :func:`welch_test`; returns the
+    rows."""
+    rows = []
+    pairs = [(hi, lo, m) for hi, lo in ORDERINGS for m in ("mAP@0.5", "mAP@0.7")]
+    pairs += [(hi, lo, "MOTA") for hi, lo in TRACK_ORDERINGS]
+    printed = False
+    for hi, lo, metric in pairs:
+        a, b = seed_values(results, hi, metric), seed_values(results, lo, metric)
+        if not (a and b):
+            continue
+        if not printed:
+            print(f"\n{'ordering (port)':<38} {'metric':<8} hi (seeds) vs lo (seeds): ordering_stats; Welch")
+            printed = True
+        st, w = ordering_stats(a, b), welch_test(a, b)
+        noise = "-" if st["noise"] is None else f"{st['noise']:.4f}"
+        p = "-" if w["p"] is None else f"{w['p']:.3g}"
+        print(f"{hi + ' > ' + lo:<38} {metric:<8} {mean_std(a)} vs {mean_std(b)}: gap {st['gap']:+.4f}, "
+              f"noise {noise} -> {st['verdict']}; Welch p {p} -> {w['verdict']}")
+        rows.append({"hi": hi, "lo": lo, "metric": metric, "n_hi": len(a), "n_lo": len(b),
+                     "ordering": st, "welch": w})
+    return rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Detection-quality protocol of the PyTorch port")
     p.add_argument("--root", type=str, default="build/quality", help="data and logs")
@@ -396,6 +588,13 @@ def main(argv=None):
     p.add_argument("--occlusion", type=int, default=1)
     p.add_argument("--track_evals", action="store_true",
                    help="after the cells, the tracking rows of the configs in TRACK_EVALS")
+    p.add_argument("--extra_evals", action="store_true",
+                   help="only the eval-only rows of EXTRA_EVALS over the trained checkpoints of their bases")
+    p.add_argument("--save_best", type=int, default=0,
+                   help="1: measure the lowest end-of-epoch loss's checkpoint (best.pth), the final one beside "
+                        "it; 0 (default): the final checkpoint")
+    p.add_argument("--max_pos", type=int, default=0,
+                   help="train_codet's --max_pos (the packed loss's positive anchors; 0 = the config's 2048)")
     p.add_argument("--summarize", action="store_true", help="only print the table against the JAX matrix")
     p.add_argument("--commit", type=str, default="", help="stamped on each cell (default: git HEAD)")
     p.add_argument("--device", type=str, default="cuda")
@@ -404,12 +603,17 @@ def main(argv=None):
 
     results = load_results(args.out)
     if args.summarize:
-        return summarize(results, load_results(JAX_MATRIX))
+        return report(results)
     args.card = card() if args.device == "cuda" else args.device
     args.commit = args.commit or git_commit()
     args.source_sha1 = source_digest()
     print(f"card: {args.card}; commit {args.commit}, sources {args.source_sha1}", flush=True)
     generate(args)
+    if args.extra_evals:
+        for seed in args.seeds:
+            for name in EXTRA_EVALS:
+                run_extra(args, name, seed, results)
+        return report(results)
     # upperbound first: a KD cell's teacher is its seed's upperbound
     order = sorted(args.configs, key=lambda c: c != "upperbound")
     for seed in args.seeds:
@@ -418,7 +622,15 @@ def main(argv=None):
         if args.track_evals:
             for base in (c for c in TRACK_EVALS if c in args.configs):
                 run_track(args, base, seed, results)
-    return summarize(results, load_results(JAX_MATRIX))
+    return report(results)
+
+
+def report(results: dict) -> list:
+    """The table against the JAX matrix, then the orderings; returns the
+    table's rows."""
+    rows = summarize(results, load_results(JAX_MATRIX))
+    summarize_orderings(results)
+    return rows
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ package's ``tools/bench_seg_matrix.py``.
 The JAX tool's protocol: the data of ``create_data_seg --occlusion 1`` at
 ``--grid 64``, 24 train and 24 val scenes of 8 frames (the files the det
 generator writes for the same flags); each (config, seed) cell trains
-through the port's seg ``train_codet`` with ``--seg_backbone unet`` and the
+through the port's seg ``train_codet`` with ``--seg_backbone`` the
+``--backbone`` (the UNet by default, as the JAX matrix measured; ``stpn``
+the detection pyramid with a SegHead, its cells under ``logs/stpn/``) and the
 fusion layer pinned at 2 (the configs of ``CONFIGS``), ``--nepoch`` 100 at
 ``--batch`` 4, 8 optimizer steps a dispatch, the final epoch's checkpoint
 only, and evaluates it on the val split through the seg ``test_codet``,
@@ -41,8 +43,8 @@ from disconet_tpu_torch.tools.bench_quality import (
     git_commit,
     load_results,
     ordering_stats,
+    record,
     run_cli,
-    save_results,
     source_digest,
     stamp,
     summarize as summarize_cells,
@@ -93,11 +95,11 @@ def run_cell(args, name: str, seed: int, results: dict) -> None:
     if key in results:
         print(f"[skip] {key}", flush=True)
         return
-    logpath = os.path.join(args.root, "logs", f"seed{seed}")
+    logpath = os.path.join(args.root, "logs", *(["stpn"] if args.backbone == "stpn" else []), f"seed{seed}")
     os.makedirs(logpath, exist_ok=True)
     log_file = os.path.join(logpath, f"{name}_seg.log")
     flags = list(CONFIGS[name])
-    common = [*flags, "--seg_backbone", "unet", "--grid", str(args.grid), "--batch", str(args.batch),
+    common = [*flags, "--seg_backbone", args.backbone, "--grid", str(args.grid), "--batch", str(args.batch),
               "--device", args.device]
     # the seg CLI logs under (com or bound) + "_seg", the config's name
     ckpt_dir = os.path.join(logpath, f"{name}_seg", "ckpt")
@@ -120,9 +122,8 @@ def run_cell(args, name: str, seed: int, results: dict) -> None:
     seconds["wall_s"] = time.perf_counter() - t0
     cell = {"mIoU": float(m.group(1)), "iou": {c: float(v) for c, v in CLASS_RE.findall(out) if c != "mIoU"}}
     cell.update(epoch_loss_stats(log_file))
-    cell["prov"] = stamp(args, flags, seconds)
-    results[key] = cell
-    save_results(results, args.out)
+    cell["prov"] = {**stamp(args, flags, seconds), "backbone": args.backbone}
+    record(args.out, key, cell, results)
     print(f"[done] {key}: mIoU {cell['mIoU']}", flush=True)
 
 
@@ -166,6 +167,8 @@ def main(argv=None):
     p.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     p.add_argument("--configs", type=str, nargs="+", default=["disco", "lowerbound", "upperbound"],
                    choices=sorted(CONFIGS))
+    p.add_argument("--backbone", type=str, default="unet", choices=["unet", "stpn"],
+                   help="the seg train_codet's --seg_backbone (the JAX matrix measured the UNet)")
     p.add_argument("--nepoch", type=int, default=100)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--grid", type=int, default=64)

@@ -331,9 +331,8 @@ class _StepGraph:
     metrics live in the graph's private pool. A replay copies the next
     superbatch into the static input and runs the K steps with one launch.
 
-    At fusion grids of up to 1024 cells (the warp's tap-matrix product) two
-    runs of the same steps from one seed are bit-identical; above them the
-    gathered warp's backward adds with atomics, and they are not."""
+    Two runs of the same steps from one seed are bit-identical, at every
+    fusion grid (the warp's backward adds in a fixed order, ``ops/warp.py``)."""
 
     WARMUP = 3
 

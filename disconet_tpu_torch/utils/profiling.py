@@ -1,5 +1,14 @@
-"""Debug aids of the port's training CLIs: the counterpart of the JAX
-package's ``enable_nan_checks`` (``jax_debug_nans``).
+"""Profiling and debug aids, the counterparts of the JAX package's
+``utils/profiling.py``.
+
+* :func:`trace` records a ``torch.profiler`` trace (CPU and, on the card,
+  CUDA activity) of its block into ``logdir`` (a Chrome trace, viewed with
+  ``chrome://tracing`` or Perfetto; TensorBoard's profile plugin reads the
+  same directory), and :func:`annotate` names a region of it
+  (``record_function``), as ``jax.profiler``'s trace and
+  ``TraceAnnotation`` do.
+* The debug mode of the training CLIs, the counterpart of the JAX package's
+  ``enable_nan_checks`` (``jax_debug_nans``).
 
 ``--debug_nans 1`` turns on autograd's anomaly mode, which names the backward
 function that made a NaN, and checks after every step that the loss and every
@@ -12,10 +21,29 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 from typing import Dict
 
 import torch
 import torch.nn as nn
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block with ``torch.profiler`` and write its trace to a
+    file under ``logdir`` (made if missing); yields ``logdir``. CUDA
+    activity is recorded where the card is available."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield logdir
+
+
+def annotate(name: str):
+    """A named region of the trace: ``with annotate("fuse"): ...``."""
+    return torch.profiler.record_function(name)
 
 
 def nan_checks(enabled: bool):

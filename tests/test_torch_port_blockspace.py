@@ -181,7 +181,7 @@ def _stage_case(seed, block_out):
             layer.BatchNorm_0.bias.copy_(torch.from_numpy(np.asarray(p["BatchNorm_0"]["bias"])))
     xt = _nchw(x).contiguous(memory_format=torch.channels_last).requires_grad_(True)
     st = _nchw(skip).contiguous(memory_format=torch.channels_last).requires_grad_(True)
-    out = m(xt, st, block_out=block_out)
+    out = m(xt, st, mode="block_out" if block_out else "natural")
     (out * _nchw(r)).sum().backward()
     got = (_nhwc(out), _nhwc(xt.grad), _nhwc(st.grad),
            {f"ConvBNRelu_{i}": getattr(m, f"ConvBNRelu_{i}").weight.grad.permute(2, 3, 1, 0).numpy()
