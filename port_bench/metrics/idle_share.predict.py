@@ -1,0 +1,15 @@
+"""Share of the timed window in which no operation ran on the device, in
+%: 1 - (device-busy seconds per call) / (the window's seconds per call).
+
+The busy seconds are the union of the device operations' intervals in a
+phase of the mix's ``profile_calls`` calls, traced with CUDA activity alone;
+the seconds per call are the untraced window's, so the profiler's own host
+work, which stretches a traced call, does not count as idle."""
+
+
+def read(r):
+    t = r.get("device_trace")
+    if r.get("kind") != "predict" or t is None or t.busy_s <= 0 or not r.get("timed_calls"):
+        return None
+    busy = t.busy_s / r["profiled_calls"]
+    return 100.0 * (1.0 - busy / (r["timed_window_s"] / r["timed_calls"]))
