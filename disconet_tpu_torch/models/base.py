@@ -57,6 +57,7 @@ from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.models.backbone import SegHead, make_heads, make_stpn, stage
 from disconet_tpu_torch.models.unet import make_unet, use_unet
 from disconet_tpu_torch.ops.warp import warp_features, warp_features_matmul
+from disconet_tpu_torch.utils import profiling
 
 TASKS = ("det", "seg")
 
@@ -83,7 +84,8 @@ def warp_all_pairs(feats: torch.Tensor, trans: torch.Tensor, extent_xy: Tuple,
     tap-matrix product of ``ops/warp.py`` while h*w <= ``MATMUL_WARP_CELLS``,
     else the gather, as the JAX package dispatches."""
     impl = warp_features_matmul if feats.shape[2] * feats.shape[3] <= MATMUL_WARP_CELLS else warp_features
-    return impl(feats, trans, extent_xy, rows)
+    with profiling.annotate("model/warp"):
+        return impl(feats, trans, extent_xy, rows)
 
 
 def sender_softmax(scores: torch.Tensor, agent_mask: torch.Tensor) -> torch.Tensor:
@@ -232,10 +234,13 @@ class IntermediateFusionModel(nn.Module):
         rows; ``trans`` holds its receivers' rows already."""
         mesh = self.mesh
         if mesh is None or not mesh.gathers_senders:
-            return self.fuse(fk, self.warp(fk, trans), agent_mask, trans)
+            warped = self.warp(fk, trans)
+            with profiling.annotate("model/fuse"):
+                return self.fuse(fk, warped, agent_mask, trans)
         send_mask = mesh.all_gather(agent_mask, "agent", 1)
         warped = self.warp_rows(self.gather_senders(fk), trans, fk.shape[2]) if self.uses_warp else None
-        return self.fuse_sharded(fk, warped, agent_mask, send_mask, trans)
+        with profiling.annotate("model/fuse"):
+            return self.fuse_sharded(fk, warped, agent_mask, send_mask, trans)
 
     def forward(
         self, bev: torch.Tensor, trans: torch.Tensor, agent_mask: torch.Tensor, store_bf16: bool = False
@@ -246,12 +251,14 @@ class IntermediateFusionModel(nn.Module):
         the fusion layer's map."""
         B, A = bev.shape[:2]
         k = self.layer
-        feats, fk = self.encode(bev, store_bf16)
+        with profiling.annotate("model/encode"):
+            feats, fk = self.encode(bev, store_bf16)
         fuse = functools.partial(self._warp_and_fuse, agent_mask=agent_mask.to(torch.bool), trans=trans)
         fused = stage(fuse, fk)
-        feats = list(feats)
-        feats[k] = agents_to_batch(fused).permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last
-        )
-        head_in, taps = self.stpn.decode(feats, store_bf16, head_fp32=self.task == "seg")
-        return head_outputs(self, head_in, taps, B, A)
+        with profiling.annotate("model/decode"):
+            feats = list(feats)
+            feats[k] = agents_to_batch(fused).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last
+            )
+            head_in, taps = self.stpn.decode(feats, store_bf16, head_fp32=self.task == "seg")
+            return head_outputs(self, head_in, taps, B, A)

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from disconet_tpu_torch.config import Config
 from disconet_tpu_torch.models.base import attach_backbone_and_heads, bev_to_batch, head_outputs
+from disconet_tpu_torch.utils import profiling
 
 
 class FaFNet(nn.Module):
@@ -39,9 +40,11 @@ class FaFNet(nn.Module):
         signature is the fusion models'); ``store_bf16`` as
         ``ConvBNRelu.forward``."""
         B, A = bev.shape[:2]
-        feats = self.stpn.encode(bev_to_batch(bev), store_bf16)
-        head_in, taps = self.stpn.decode(feats, store_bf16, head_fp32=self.task == "seg")
-        return head_outputs(self, head_in, taps, B, A)
+        with profiling.annotate("model/encode"):
+            feats = self.stpn.encode(bev_to_batch(bev), store_bf16)
+        with profiling.annotate("model/decode"):
+            head_in, taps = self.stpn.decode(feats, store_bf16, head_fp32=self.task == "seg")
+            return head_outputs(self, head_in, taps, B, A)
 
 
 class TeacherNet(FaFNet):

@@ -22,6 +22,7 @@ import torch
 
 from disconet_tpu_torch.ops.boxes import decode_boxes
 from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
+from disconet_tpu_torch.utils import profiling
 
 IouFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -134,20 +135,23 @@ def _suppress(
     more prefix index per step, so iterating until no frame changes (at most K
     steps) is exact. A frame already at its fixpoint stays there, so running
     all frames until the last one settles gives each frame's own result.
+    Each step reads one bool of the device on the host (``sync/nms.suppress``).
     """
-    K = top_scores.shape[-1]
-    ious = _iou_matrix(top_boxes, iou)
-    valid = top_scores > -1.0
-    ar = torch.arange(K, device=top_scores.device)
-    conflict = (ious > iou_threshold) & (ar[:, None] < ar[None, :])  # [f, j, i]
-    keep = valid
-    for _ in range(K):
-        new = valid & ~(keep[..., :, None] & conflict).any(dim=-2)
-        changed = bool((new != keep).any())
-        keep = new
-        if not changed:
-            break
-    return keep
+    with profiling.annotate("nms/suppress"):
+        K = top_scores.shape[-1]
+        ious = _iou_matrix(top_boxes, iou)
+        valid = top_scores > -1.0
+        ar = torch.arange(K, device=top_scores.device)
+        conflict = (ious > iou_threshold) & (ar[:, None] < ar[None, :])  # [f, j, i]
+        keep = valid
+        for _ in range(K):
+            new = valid & ~(keep[..., :, None] & conflict).any(dim=-2)
+            changed = bool((new != keep).any())
+            profiling.count("sync/nms.suppress")
+            keep = new
+            if not changed:
+                break
+        return keep
 
 
 def rotated_nms(
@@ -172,9 +176,10 @@ def rotated_nms(
         boxes (F, top_k, 5), scores (F, top_k), keep (F, top_k) bool, as
         :func:`rotated_nms_decode`.
     """
-    top_scores, idx = _select_candidates_flat(scores, score_threshold, top_k)
-    top_boxes = _pad_to(_gather_rows(boxes, idx), top_k, 0.0)
-    top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
+    with profiling.annotate("nms/select"):
+        top_scores, idx = _select_candidates_flat(scores, score_threshold, top_k)
+        top_boxes = _pad_to(_gather_rows(boxes, idx), top_k, 0.0)
+        top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
     return top_boxes, top_scores, _suppress(top_boxes, top_scores, iou_threshold, iou)
 
 
@@ -214,21 +219,22 @@ def rotated_nms_decode(
 
     Deltas are decoded in float32 whatever their storage dtype.
     """
-    if scores.dim() == 2:
-        top_scores, idx = _select_candidates_flat(scores, score_threshold, top_k)
-        top_boxes = decode_boxes(_gather_rows(deltas, idx).float(), anchors[idx])
-        top_boxes = _pad_to(top_boxes, top_k, 0.0)
-    else:
-        Fr, H, W, A = scores.shape
-        top_scores, (h, w, a) = _select_candidates_spatial(scores, score_threshold, top_k)
-        cell = h * W + w  # (F, top_k)
-        code = deltas.shape[-1] // A if deltas.dim() == 4 else deltas.shape[-1]
-        # the winners' cells, then their anchors: the (F, H, W, A, code) split
-        # of the packed layout is never built
-        rows = _gather_rows(deltas.reshape(Fr, H * W, A * code), cell).reshape(Fr, top_k, A, code)
-        d = torch.gather(rows, 2, a[..., None, None].expand(Fr, top_k, 1, code))[:, :, 0]
-        top_boxes = decode_boxes(d.float(), anchors.reshape(H * W * A, 5)[cell * A + a])
-    top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
+    with profiling.annotate("nms/select"):
+        if scores.dim() == 2:
+            top_scores, idx = _select_candidates_flat(scores, score_threshold, top_k)
+            top_boxes = decode_boxes(_gather_rows(deltas, idx).float(), anchors[idx])
+            top_boxes = _pad_to(top_boxes, top_k, 0.0)
+        else:
+            Fr, H, W, A = scores.shape
+            top_scores, (h, w, a) = _select_candidates_spatial(scores, score_threshold, top_k)
+            cell = h * W + w  # (F, top_k)
+            code = deltas.shape[-1] // A if deltas.dim() == 4 else deltas.shape[-1]
+            # the winners' cells, then their anchors: the (F, H, W, A, code) split
+            # of the packed layout is never built
+            rows = _gather_rows(deltas.reshape(Fr, H * W, A * code), cell).reshape(Fr, top_k, A, code)
+            d = torch.gather(rows, 2, a[..., None, None].expand(Fr, top_k, 1, code))[:, :, 0]
+            top_boxes = decode_boxes(d.float(), anchors.reshape(H * W * A, 5)[cell * A + a])
+        top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
     return top_boxes, top_scores, _suppress(top_boxes, top_scores, iou_threshold, iou)
 
 
@@ -253,27 +259,28 @@ def rotated_nms_decode_packed(
     ties by index, this path still orders them by logit, so the selected sets
     can differ among anchors scoring 1.0. Outputs as :func:`rotated_nms_decode`.
     """
-    Fr, H, W, C = raw.shape
-    NA = num_anchors
-    code = (C - 2 * NA) // NA
-    r = raw.float()
-    k = min(top_k, H * W)
-    _, cells = _top_k_stable((r[..., NA:2 * NA] - r[..., :NA]).amax(-1).reshape(Fr, H * W), k)
-    rows = _gather_rows(raw.reshape(Fr, H * W, C), cells)  # (F, k, C) winner rows
-    diff = rows[..., NA:2 * NA].float() - rows[..., :NA].float()
-    kk = min(top_k, k * NA)
-    vals, pos = _top_k_stable(diff.reshape(Fr, k * NA), kk)
-    sel = torch.div(pos, NA, rounding_mode="floor")
-    a = pos % NA
-    cell = torch.gather(cells, 1, sel)
-    scores = torch.sigmoid(vals)
-    scores = torch.where(scores >= score_threshold, scores, torch.full_like(scores, -1.0))
-    d = _gather_rows(rows[..., 2 * NA:], sel).reshape(Fr, kk, NA, code)
-    d = torch.gather(d, 2, a[..., None, None].expand(Fr, kk, 1, code))[:, :, 0]
-    top_boxes = decode_boxes(d.float(), anchors.reshape(H * W * NA, 5)[cell * NA + a])
-    top_boxes = _pad_to(top_boxes, top_k, 0.0)
-    top_scores = _pad_to(scores, top_k, -1.0)
-    top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
+    with profiling.annotate("nms/select"):
+        Fr, H, W, C = raw.shape
+        NA = num_anchors
+        code = (C - 2 * NA) // NA
+        r = raw.float()
+        k = min(top_k, H * W)
+        _, cells = _top_k_stable((r[..., NA:2 * NA] - r[..., :NA]).amax(-1).reshape(Fr, H * W), k)
+        rows = _gather_rows(raw.reshape(Fr, H * W, C), cells)  # (F, k, C) winner rows
+        diff = rows[..., NA:2 * NA].float() - rows[..., :NA].float()
+        kk = min(top_k, k * NA)
+        vals, pos = _top_k_stable(diff.reshape(Fr, k * NA), kk)
+        sel = torch.div(pos, NA, rounding_mode="floor")
+        a = pos % NA
+        cell = torch.gather(cells, 1, sel)
+        scores = torch.sigmoid(vals)
+        scores = torch.where(scores >= score_threshold, scores, torch.full_like(scores, -1.0))
+        d = _gather_rows(rows[..., 2 * NA:], sel).reshape(Fr, kk, NA, code)
+        d = torch.gather(d, 2, a[..., None, None].expand(Fr, kk, 1, code))[:, :, 0]
+        top_boxes = decode_boxes(d.float(), anchors.reshape(H * W * NA, 5)[cell * NA + a])
+        top_boxes = _pad_to(top_boxes, top_k, 0.0)
+        top_scores = _pad_to(scores, top_k, -1.0)
+        top_boxes = _mask_invalid_boxes(top_boxes, top_scores)
     return top_boxes, top_scores, _suppress(top_boxes, top_scores, iou_threshold, iou)
 
 

@@ -22,11 +22,20 @@ from disconet_tpu_torch.ops.nms import (
 )
 from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix
 from disconet_tpu_torch.ops.voxelize import voxelize_occupy
+from disconet_tpu_torch.utils import profiling
 
 
-def _as_tensor(x, dtype, device) -> torch.Tensor:
-    if not isinstance(x, torch.Tensor):
+def _as_tensor(x, dtype, device: torch.device) -> torch.Tensor:
+    """``x`` (an array or a tensor) on ``device`` in ``dtype``; while
+    recording, a host array copied to another device counts its bytes under
+    ``h2d_bytes/pinned`` or ``h2d_bytes/pageable`` (a numpy array's memory is
+    never pinned)."""
+    array = not isinstance(x, torch.Tensor)
+    if array:
         x = torch.from_numpy(np.ascontiguousarray(x))
+    if profiling.active() and x.device.type == "cpu" and device.type != "cpu":
+        pinned = not array and x.is_pinned()
+        profiling.count("h2d_bytes/pinned" if pinned else "h2d_bytes/pageable", x.nbytes)
     return x.to(device=device, dtype=dtype).contiguous()
 
 
@@ -61,12 +70,14 @@ def predict(
         K = cfg.nms_top_k; dead slots have keep False.
     """
     dev = next(model.parameters()).device
-    points = _as_tensor(points, torch.float32, dev)
-    trans = _as_tensor(trans, torch.float32, dev)
-    agent_mask = _as_tensor(agent_mask, torch.bool, dev)
-    anchors = _as_tensor(anchors, torch.float32, dev)
+    with profiling.annotate("predict/inputs"):
+        points = _as_tensor(points, torch.float32, dev)
+        trans = _as_tensor(trans, torch.float32, dev)
+        agent_mask = _as_tensor(agent_mask, torch.bool, dev)
+        anchors = _as_tensor(anchors, torch.float32, dev)
     with torch.inference_mode():
-        bev = voxelize(points, cfg.voxel_size, cfg.area_extents)
+        with profiling.annotate("predict/voxelize"):
+            bev = voxelize(points, cfg.voxel_size, cfg.area_extents)
         return detect(model, bev, trans, agent_mask, anchors, cfg, iou)
 
 

@@ -114,7 +114,8 @@ def parse_args(argv=None):
     p.add_argument("--remat", type=int, default=0, help="rematerialize activations in the backward")
     p.add_argument("--steps_per_dispatch", type=int, default=1, help="optimizer steps per device call")
     p.add_argument("--profile", type=int, default=0,
-                   help="trace N steady-state steps with torch.profiler to {logdir}/profile/trace.json")
+                   help="trace N steady-state steps with torch.profiler, the program's spans included, to "
+                        "{logdir}/profile/trace.json, and print the spans' and counters' table")
     p.add_argument("--debug_nans", type=int, default=0, help="stop at the first NaN")
     p.add_argument("--save_best", type=int, default=0,
                    help="track the min end-of-epoch train loss and export {logdir}/best.pth "
@@ -363,8 +364,9 @@ def _train(args, dev, mesh):
             yield batch
 
     step = 0
-    prof = None
-    profile_done = False
+    # --profile: the trace of steps 3 .. 2 + N ({logdir}/profile/trace.json,
+    # utils/profiling.trace), then the table of the program's spans and counters
+    profiled, profile_done = contextlib.ExitStack(), False
     # --save_best: the min end-of-epoch loss's weights, held on the host and
     # written at checkpoint boundaries
     best = {"loss": float("inf"), "epoch": None, "snap": None, "written": None} if args.save_best else None
@@ -380,16 +382,13 @@ def _train(args, dev, mesh):
             if dev_batch is None:
                 break
             # >=: with K > 1 `step` advances by K and may jump past 2
-            if args.profile and lead and not profile_done and prof is None and step >= 2:
-                from torch.profiler import ProfilerActivity, profile
-
-                activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-                prof = profile(activities=activities)
-                prof.__enter__()
+            if args.profile and lead and not profile_done and step >= 2:
+                profile_done = True
+                profiled.callback(lambda: print(profiling.format_snapshot(profiling.snapshot())))
+                profiled.enter_context(profiling.trace(os.path.join(logdir, "profile")))
             step, metrics = run_dispatch(train_k, train_step, model, step, dev_batch, K, args.debug_nans)
-            if prof is not None and step >= 2 + args.profile:
-                _end_profile(prof, dev, logdir)
-                prof, profile_done = None, True
+            if step >= 2 + args.profile:
+                profiled.close()
             if step % args.log_every == 0:
                 last = last_floats(metrics)
                 logger.write(step, last, prefix=f"epoch {epoch}")
@@ -412,20 +411,9 @@ def _train(args, dev, mesh):
                          loss=last.get("loss", 0.0))
             if args.visualization:
                 _render_train_panel(cfg, model, dataset, args.batch, dev, logdir, epoch)
-    if prof is not None:  # the run ended before 2 + --profile steps
-        _end_profile(prof, dev, logdir)
+    profiled.close()  # the run ended before 2 + --profile steps
     logger.close()
     print(f"training complete: {args.nepoch} epochs, checkpoints in {logdir}")
-
-
-def _end_profile(prof, dev, logdir: str) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    prof.__exit__(None, None, None)
-    out = os.path.join(logdir, "profile")
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "trace.json"))
-    print(f"profiler trace written to {out}")
 
 
 def _render_train_panel(cfg, model, dataset, batch_size: int, dev, logdir: str, epoch: int) -> None:

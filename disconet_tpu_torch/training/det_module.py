@@ -51,6 +51,7 @@ from disconet_tpu_torch.ops.losses import (
 from disconet_tpu_torch.ops.nms import multiclass_nms_decode
 from disconet_tpu_torch.parallel.mesh import attach_mesh, replicate_tree
 from disconet_tpu_torch.pipeline import detect
+from disconet_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 
@@ -271,31 +272,44 @@ def make_train_step(
     (``parallel.attach_mesh``): the BatchNorm statistics, the fusion and the
     losses' denominators are global, the gradients are summed over the
     ranks before Adam, and the metrics are the global ones. The KD tables
-    are whole on every rank; the step reads its agents' and rows' part."""
+    are whole on every rank; the step reads its agents' and rows' part.
+
+    The step's spans (``utils/profiling.py``): ``train/kd`` (the cache's rows
+    or the teacher's forward, with KD), ``train/forward`` (the forward and
+    the losses), ``train/backward`` and ``train/update`` (the all-reduce,
+    the gradient norm and Adam)."""
     if mesh is not None:
         attach_mesh(model, mesh)
         if teacher is not None:
             attach_mesh(teacher, mesh)
 
+    def kd_taps(batch: Batch):
+        if kd_from_cache is None:
+            return _teacher_out(teacher, kd_flag, batch, config)
+        idx = batch["frame_idx"].long()
+        rows = [t.index_select(0, idx) for t in kd_from_cache]
+        return {"kd_feats": rows if mesh is None else [mesh.local(r) for r in rows]}
+
     def train_step(batch: Batch) -> Batch:
-        if kd_flag and kd_from_cache is not None:
-            idx = batch["frame_idx"].long()
-            rows = [t.index_select(0, idx) for t in kd_from_cache]
-            teacher_out = {"kd_feats": rows if mesh is None else [mesh.local(r) for r in rows]}
-        else:
-            teacher_out = _teacher_out(teacher, kd_flag, batch, config)
-        model.train()
-        with remat_stages(config.train_remat):
-            out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
-        loss, metrics = _losses(out, batch, config, teacher_out, mesh)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            _all_reduce_grads(model, mesh)
-            metrics = {k: mesh.all_reduce(v.detach()) for k, v in metrics.items()}
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
-        optimizer.step()
+        teacher_out = None
+        if kd_flag and (kd_from_cache is not None or teacher is not None):
+            with profiling.annotate("train/kd"):
+                teacher_out = kd_taps(batch)
+        with profiling.annotate("train/forward"):
+            model.train()
+            with remat_stages(config.train_remat):
+                out = model(get_bev(batch, "bev", config), batch["trans"], batch["agent_mask"])
+            loss, metrics = _losses(out, batch, config, teacher_out, mesh)
+        with profiling.annotate("train/backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with profiling.annotate("train/update"):
+            if mesh is not None:
+                _all_reduce_grads(model, mesh)
+                metrics = {k: mesh.all_reduce(v.detach()) for k, v in metrics.items()}
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+            optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step

@@ -33,6 +33,7 @@ from disconet_tpu.ops.rotated_iou import rotated_iou_pairs as jax_rotated_iou_pa
 from disconet_tpu_torch import ConfigGlobal, build_model, tiny_config
 from disconet_tpu_torch.checkpoint import load_state_dict_strict, state_dict_from_flax
 from disconet_tpu_torch.data.targets import anchors_from_map
+from disconet_tpu_torch.models.base import warp_all_pairs
 from disconet_tpu_torch.ops import bitpack, warp
 from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix_plain, rotated_iou_pairs
 from disconet_tpu_torch.training import batch_to_device, create_train_state, get_bev, make_train_step
@@ -115,11 +116,17 @@ def test_config_global_equals_jax():
 
 def test_profiling_trace_writes_an_annotated_trace(tmp_path):
     logdir = str(tmp_path / "trace")
+    profiling.snapshot()
     with profiling.trace(logdir) as d:
         with profiling.annotate("fuse_region"):
             torch.ones(8, 8) @ torch.ones(8, 8)
+        # a span of the program's own: the warp's
+        warp_all_pairs(torch.ones(1, 2, 4, 4, 3), torch.eye(4).expand(1, 2, 2, 4, 4), ((-8.0, 8.0), (-8.0, 8.0)))
     files = [os.path.join(d, f) for f in os.listdir(d)]
     assert files and any("fuse_region" in open(f).read() for f in files)
+    assert any('"model/warp"' in open(f).read() for f in files)
+    assert os.listdir(d) == ["trace.json"]
+    assert {k: v["count"] for k, v in profiling.snapshot()["spans"].items()} == {"fuse_region": 1, "model/warp": 1}
 
 
 # names of the JAX package's export lists whose counterparts are elsewhere
