@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the whole run, one GPU
     python3 chip_smoke.py --profile  # also print the top CUDA kernels of one predict and one KD step
+    python3 chip_smoke.py --conv3x3  # phases 1, 2 and 16 alone
 
 Phases, each printing its own line; any failure exits non-zero:
 
@@ -71,10 +72,12 @@ Phases, each printing its own line; any failure exits non-zero:
    width, batch 4 x 6 agents with one absent. For each of ``sum``, ``mean``,
    ``max``, ``cat``, ``agent``, ``v2v``, ``when2com`` and ``who2com``, with
    seeded random weights: ``predict`` from phase 5's points (both kernels'
-   launch counts must rise; keep masks equal to the plain ops' pipeline,
-   boxes and scores within 1e-4), its scenes/s as the median of 3 windows of
-   20 calls; one train step on phase 7's batch (finite metrics, a finite
-   nonzero gradient in every group of layers), then 3 timed; peak memory;
+   launch counts must rise, and the 3x3 conv kernel's must read 15 for
+   ``v2v`` and 0 for the others; keep masks equal to the plain ops'
+   pipeline, boxes and scores within 1e-4), its scenes/s as the median of 3
+   windows of 20 calls; one train step on phase 7's batch (finite metrics, a
+   finite nonzero gradient in every group of layers, 30 launches of the
+   conv kernel for ``v2v`` and 0 for the others), then 3 timed; peak memory;
    and a float32 forward at the 64-grid on the card within 1e-4 of the CPU.
    Then DiscoNet segmentation on the UNet: 3 warm-up steps and 5 windows of
    5 on phase 7's grids with labels learnable from them (the loss must
@@ -170,6 +173,17 @@ Phases, each printing its own line; any failure exits non-zero:
    masks equal to the default's, its KD step timed against the default's;
    ``ConfigGlobal`` builds the teacher, whose outputs equal a ``Config()``
    teacher's from the same seed.
+
+16. (run right after phase 2) V2VNet's float32 3x3 convs on the 3xTF32
+   kernel (``ops/conv3x3.py``) at the shapes of its fusion at every
+   ``--layer`` (the message conv's halves and the ConvGRU's convs at 32x32
+   x 256, the main path, 64x64 x 128, 128x128 x 64 and 256x256 x 32) and
+   the ConvGRU's halo form on a strip of spatial 2: forward and input gradient against a float64 conv of
+   the same inputs, the kernel's largest and RMS error at most 2x cuDNN
+   float32's (TF32 off) on the same data, a planted single TF32 pass past
+   that limit, two runs bit-identical; ptxas's registers and spills; the
+   kernel's times beside cuDNN's and the 3-pass bound, and their sums over a
+   ``predict``'s 15 convs at each ``--layer``.
 
 Phases 7, 9 and 12 also time their bf16 steps with the parent's arithmetic
 (every conv result rounded to bf16, patched in) and with the repair
@@ -404,6 +418,7 @@ def main(argv) -> int:
     )
     from disconet_tpu_torch import _build
     from disconet_tpu_torch.models.base import agents_to_batch
+    from disconet_tpu_torch.ops.conv3x3 import conv3x3_f32x3
     from disconet_tpu_torch.ops.nms import packed_scores_and_deltas, rotated_nms_decode
     from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix, rotated_iou_matrix_plain
     from disconet_tpu_torch.ops.voxelize import voxelize_occupy, voxelize_occupy_plain
@@ -424,6 +439,14 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    # phase 16 runs here, before phase 3: at the end of a whole run torch.profiler
+    # recorded no device work in it (after phases 3-15, phase 13's ranks last)
+    p16 = _phase16()
+    if "--conv3x3" in argv:  # phase 16 alone
+        print(json.dumps({"conv3x3": p16}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     cfg = Config()
     rng = np.random.default_rng(0)
@@ -502,12 +525,14 @@ def main(argv) -> int:
 
     voxelize_occupy.launches = 0
     rotated_iou_matrix.launches = 0
+    conv3x3_f32x3.launches = 0
     out_boxes, out_scores, keep = predict(model, pts_d, trans_d, amask_d, anchors, cfg)
     torch.cuda.synchronize()
-    launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
+    launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches,
+                "conv3x3": conv3x3_f32x3.launches}
     print(f"predict: launches {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    if min(launches["voxelize"], launches["rotated_iou"]) < 1 or launches["conv3x3"] != 0:
+        raise AssertionError(f"a kernel was not launched on the main path, or V2VNet's conv was: {launches}")
     if out_boxes.shape != (BATCH, AGENTS, K, 5) or keep.shape != (BATCH, AGENTS, K):
         raise AssertionError(f"bad output shapes {tuple(out_boxes.shape)} {tuple(keep.shape)}")
     if not (torch.isfinite(out_boxes).all() and torch.isfinite(out_scores).all()):
@@ -767,6 +792,24 @@ def main(argv) -> int:
             "bound_ms": iou_bound,
             "bound_by": "operations" if iou_ops / FP32_OPS_PER_S > iou_bytes / HBM_BYTES_PER_S else "bytes",
             "library_ms": None,
+        },
+        {
+            "name": "conv3x3_f32x3",
+            "route": "cuda",
+            "source": "disconet_tpu_torch/csrc/conv3x3_f32x3.cu",
+            "replaces": None,
+            "launches": other["v2v"]["conv3x3"],
+            "path_launches": {"predict": launches["conv3x3"],
+                              **{f"predict {c}": n["conv3x3"] for c, n in other.items()},
+                              **{f"train step {c}": n["conv3x3 train step"] for c, n in other.items()}},
+            "ms": p16["per_predict"][3]["ms"],
+            "device_ms": p16["per_predict"][3]["device_ms"],
+            "plain_ms": p16["per_predict"][3]["library_ms"],
+            "bound_ms": p16["per_predict"][3]["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": p16["per_predict"][3]["library_ms"],
+            "per_layer": p16["per_predict"],
+            "shapes": p16["rows"],
         },
     ]
     print(json.dumps({"kernels": kernels}))
@@ -1188,11 +1231,13 @@ def _seg_labels(bev_u8, classes):
 
 def _phase10(cfg, host7, tb, main_path):
     """The other fusion models and segmentation (see the module docstring).
-    Returns {com: launches of its predict}."""
+    Returns {com: launches of its predict, and of the 3x3 conv kernel in its
+    first train step}."""
     import numpy as np
     import torch
 
     from disconet_tpu_torch import build_model, example_train_batch, predict, tiny_config
+    from disconet_tpu_torch.ops.conv3x3 import conv3x3_f32x3
     from disconet_tpu_torch.ops.rotated_iou import rotated_iou_matrix, rotated_iou_matrix_plain
     from disconet_tpu_torch.ops.voxelize import voxelize_occupy, voxelize_occupy_plain
     from disconet_tpu_torch.tools.seg import create_data_seg, test_codet as seg_test, train_codet as seg_train
@@ -1211,13 +1256,20 @@ def _phase10(cfg, host7, tb, main_path):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = build_model(com, cfg, seed=3)
+        # V2VNet's fusion runs 15 3x3 convs on the kernel a predict (3 rounds
+        # x the message conv's two halves and the ConvGRU's 3), 30 a train
+        # step (and their input gradients); no other model runs one
+        want_conv = {"conv3x3": 15, "conv3x3 train step": 30} if com == "v2v" else \
+            {"conv3x3": 0, "conv3x3 train step": 0}
         voxelize_occupy.launches = 0
         rotated_iou_matrix.launches = 0
+        conv3x3_f32x3.launches = 0
         boxes, scores, keep = predict(model, pts_d, trans_d, amask_d, anchors, cfg)
         torch.cuda.synchronize()
-        launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches}
-        if min(launches.values()) < 1:
-            raise AssertionError(f"{com}: a kernel was not launched by predict: {launches}")
+        launches = {"voxelize": voxelize_occupy.launches, "rotated_iou": rotated_iou_matrix.launches,
+                    "conv3x3": conv3x3_f32x3.launches}
+        if min(launches["voxelize"], launches["rotated_iou"]) < 1 or launches["conv3x3"] != want_conv["conv3x3"]:
+            raise AssertionError(f"{com}: predict's launches {launches}, want {want_conv['conv3x3']} of conv3x3")
         all_launches[com] = launches
         pb, ps, pk = predict(model, pts_d, trans_d, amask_d, anchors, cfg,
                              voxelize=voxelize_occupy_plain, iou=rotated_iou_matrix_plain)
@@ -1232,7 +1284,12 @@ def _phase10(cfg, host7, tb, main_path):
         predict_peak = torch.cuda.max_memory_allocated() / 2**30
         optimizer = create_train_state(model)
         step = make_train_step(model, cfg, optimizer)
+        conv3x3_f32x3.launches = 0
         first = {k: float(v) for k, v in step(tb).items()}
+        launches["conv3x3 train step"] = conv3x3_f32x3.launches
+        if launches["conv3x3 train step"] != want_conv["conv3x3 train step"]:
+            raise AssertionError(f"{com}: {launches['conv3x3 train step']} conv3x3 launches in a train step, want "
+                                 f"{want_conv['conv3x3 train step']}")
         groups = _grad_groups(model)
         if not all(np.isfinite(v) for v in first.values()) or not all(0 < g < float("inf") for g in groups.values()):
             raise AssertionError(f"{com}: train step metrics {first}, gradient norms by group {groups}")
@@ -2203,14 +2260,23 @@ P13_F64_REL = 1e-9
 @contextlib.contextmanager
 def _float64():
     """The float32 mode computed in float64: ``Tensor.float`` keeps float64
-    and new floating tensors default to it (the caller casts the model)."""
+    and new floating tensors default to it (the caller casts the model);
+    V2VNet's 3x3 convs go to ``F.conv2d`` (the kernel takes float32 only)."""
     import torch
     from unittest import mock
+
+    import torch.nn.functional as F
+
+    from disconet_tpu_torch.models import v2v_net
+
+    def conv64(x, weight, bias=None, pad_h=1):
+        return F.conv2d(x, weight, bias, padding=(pad_h, 1))
 
     default = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
-        with mock.patch.object(torch.Tensor, "float", lambda self, *a, **k: self.to(torch.float64)):
+        with mock.patch.object(torch.Tensor, "float", lambda self, *a, **k: self.to(torch.float64)), \
+                mock.patch.object(v2v_net, "conv3x3_f32x3", conv64):
             yield
     finally:
         torch.set_default_dtype(default)
@@ -2351,6 +2417,148 @@ def _p13_torchrun(work):
         raise AssertionError("torchrun train_codet: no epoch_2.pth")
     print(f"torchrun train_codet --mesh_agent 2 (gloo, 2 ranks on the card): an epoch in {s1:.1f} s, resumed for a "
           f"second in {s2:.1f} s (process start included)")
+
+
+# phase 16: V2VNet's float32 3x3 convs on the 3xTF32 kernel
+# (ops/conv3x3.py) at its fusion's shapes (images, rows out, width, Cin,
+# Cout, pad_h), each against a float64 conv of the same inputs beside
+# cuDNN's float32 (TF32 off) on the same data, forward and input gradient:
+# the kernel's largest and RMS error at most 2x cuDNN's; the planted single
+# TF32 pass (TF32-rounded activations, no lo weights) past that limit; two
+# runs bit-identical. Then the kernel's times beside cuDNN's and its bound.
+# (--layer, fusion grid, C) of V2VNet at batch 4 x 6 agents; --layer 3 is the main path
+CONV_LAYERS = ((3, 32, 256), (2, 64, 128), (1, 128, 64), (0, 256, 32))
+TF32_OPS_PER_S = 495e12
+
+
+def _conv_shapes():
+    """(shape, --layer, what, convs of the shape a predict) of each conv."""
+    for layer, g, c in CONV_LAYERS:
+        yield (BATCH * AGENTS * AGENTS, g, g, c, c, 1), layer, "msg_conv sender half", 3
+        yield (BATCH * AGENTS, g, g, c, c, 1), layer, "msg_conv receiver half", 3
+        yield (BATCH * AGENTS, g, g, 2 * c, c, 1), layer, "ConvGRU update, reset, cand", 9
+        if layer == 3:
+            yield (BATCH * AGENTS, g // 2, g, 2 * c, c, 0), layer, "ConvGRU on a strip of spatial 2 (halo rows)", 0
+
+
+def _tf32_round(t):
+    import torch
+
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rel_errors(got, ref):
+    d = got.double() - ref
+    return (d.abs().max() / ref.abs().max()).item(), (d.norm() / ref.norm()).item()
+
+
+def _ptxas_report(name):
+    """ptxas's registers, shared memory and spills of csrc/<name>.cu."""
+    from disconet_tpu_torch import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = subprocess.run([_build._nvcc(), *[f for f in _build.NVCC_FLAGS if f != "-shared"], "-Xptxas", "-v",
+                              "-c", "-o", os.path.join(tmp, "k.o"), os.path.join(_build.CSRC, f"{name}.cu")],
+                             capture_output=True, text=True)
+    lines = [ln.strip() for ln in (run.stdout + run.stderr).splitlines() if ln.strip()]
+    print(f"ptxas {name}.cu:\n    " + "\n    ".join(lines))
+
+
+def _phase16():
+    import torch
+    import torch.nn.functional as F
+
+    from disconet_tpu_torch.ops import conv3x3 as c3
+    from disconet_tpu_torch.ops.conv3x3 import conv3x3_f32x3
+
+    t_phase = time.perf_counter()
+    _ptxas_report("conv3x3_f32x3")
+    dev = torch.device("cuda")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    try:
+        for i, ((n, h, w, cin, cout, pad_h), layer, what, per_predict) in enumerate(_conv_shapes()):
+            g = torch.Generator(device="cuda").manual_seed(16 + i)
+            cl = torch.channels_last
+            x = torch.randn(n, cin, h + 2 - 2 * pad_h, w, device=dev, generator=g).contiguous(memory_format=cl)
+            wt = torch.randn(cout, cin, 3, 3, device=dev, generator=g) * (2.0 / (9 * cin)) ** 0.5
+            b = torch.randn(cout, device=dev, generator=g) * 0.1
+            gy = torch.randn(n, cout, h, w, device=dev, generator=g).contiguous(memory_format=cl)
+            x64 = x.double().requires_grad_()
+            ref = F.conv2d(x64, wt.double(), b.double(), padding=(pad_h, 1))
+            ref.backward(gy.double())
+            x32 = x.clone().requires_grad_()
+            F.conv2d(x32, wt, b, padding=(pad_h, 1)).backward(gy)
+            lib = F.conv2d(x, wt, b, padding=(pad_h, 1))
+            xk = x.clone().requires_grad_()
+            got = conv3x3_f32x3(xk, wt, b, pad_h)
+            got.backward(gy)
+            again = conv3x3_f32x3(x, wt, b, pad_h)
+            dx_again = c3._launch(gy, c3._prepare(wt, True), None, 2 - pad_h)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(xk.grad, dx_again)):
+                raise AssertionError(f"conv3x3 {what} at --layer {layer}: two runs differ")
+
+            def fault(t, bias, transpose, pad):
+                wsplit = c3._prepare(wt, transpose)
+                wsplit[1].zero_()
+                return c3._launch(_tf32_round(t.permute(0, 2, 3, 1)).permute(0, 3, 1, 2), wsplit, bias, pad)
+
+            errs = {}
+            for part, kernel, cudnn, exact, planted in (
+                    ("forward", got, lib, ref.detach(), fault(x, b, False, pad_h)),
+                    ("input grad", xk.grad, x32.grad, x64.grad, fault(gy, None, True, 2 - pad_h))):
+                k, c, f = (_rel_errors(t, exact) for t in (kernel, cudnn, planted))
+                errs[part] = {"kernel": k, "cudnn": c, "single_pass": f}
+                if not (k[0] <= 2 * c[0] and k[1] <= 2 * c[1]):
+                    raise AssertionError(f"conv3x3 {what} at --layer {layer} {part}: kernel max/rms {k} past 2x "
+                                         f"cuDNN's {c}")
+                if not (f[0] > 2 * c[0] or f[1] > 2 * c[1]):
+                    raise AssertionError(f"conv3x3 {what} at --layer {layer} {part}: the single-pass fault {f} "
+                                         f"passes 2x cuDNN's {c}")
+            del x64, ref, x32, xk, got, again, dx_again
+            torch.cuda.empty_cache()
+            wsplit_t = c3._prepare(wt, True)
+            ops = 2 * 9 * cin * cout * n * h * w
+            row = {
+                "shape": [n, h, w, cin, cout, pad_h], "layer": layer, "what": what, "per_predict": per_predict,
+                "errors": errs,
+                "ms": _time_ms(lambda: conv3x3_f32x3(x, wt, b, pad_h)),
+                "device_ms": _device_ms(lambda: conv3x3_f32x3(x, wt, b, pad_h))[0],
+                "library_ms": _time_ms(lambda: F.conv2d(x, wt, b, padding=(pad_h, 1))),
+                "grad_ms": _time_ms(lambda: c3._launch(gy, c3._prepare(wt, True), None, 2 - pad_h)),
+                "grad_library_ms": _time_ms(lambda: torch.ops.aten.convolution_backward(
+                    gy, x, wt, None, [1, 1], [pad_h, 1], [1, 1], False, [0, 0], 1, [True, False, False])),
+                "grad_kernel_only_ms": _time_ms(lambda: c3._launch(gy, wsplit_t, None, 2 - pad_h)),
+                "bound_ms": 3 * ops / TF32_OPS_PER_S * 1e3,
+            }
+            row["tflops"] = ops / row["ms"] / 1e9
+            rows.append(row)
+            e = errs["forward"]
+            print(f"conv3x3 --layer {layer} {what} {tuple(row['shape'])}: {row['ms']:.3f} ms ({row['device_ms']:.3f} "
+                  f"device, {row['tflops']:.1f} TFLOP/s), cuDNN fp32 {row['library_ms']:.3f}, bound "
+                  f"{row['bound_ms']:.3f}; input grad {row['grad_ms']:.3f} (kernel alone "
+                  f"{row['grad_kernel_only_ms']:.3f}) against cuDNN {row['grad_library_ms']:.3f}; max/rms error vs "
+                  f"float64: forward kernel {e['kernel'][0]:.2e}/{e['kernel'][1]:.2e}, cuDNN "
+                  f"{e['cudnn'][0]:.2e}/{e['cudnn'][1]:.2e}, single pass "
+                  f"{e['single_pass'][0]:.2e}/{e['single_pass'][1]:.2e}; input grad kernel "
+                  f"{errs['input grad']['kernel'][0]:.2e}/{errs['input grad']['kernel'][1]:.2e}, cuDNN "
+                  f"{errs['input grad']['cudnn'][0]:.2e}/{errs['input grad']['cudnn'][1]:.2e}, single pass "
+                  f"{errs['input grad']['single_pass'][0]:.2e}/{errs['input grad']['single_pass'][1]:.2e}  [{_SMI}]")
+            del x, wt, b, gy, wsplit_t
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    per_predict = {}
+    for layer, _, _ in CONV_LAYERS:
+        per_predict[layer] = {k: sum(r[k] * r["per_predict"] for r in rows if r["layer"] == layer)
+                              for k in ("ms", "device_ms", "library_ms", "bound_ms", "grad_ms", "grad_library_ms")}
+        print(f"conv3x3 per predict at --layer {layer} (15 convs): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in per_predict[layer].items()))
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "per_predict": per_predict}
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ Each round warps every agent's hidden state into every receiver's frame
 messages ReLU(msg_conv(cat(receiver state, warped sender state))), averages
 them over present senders and updates the hidden state with the ConvGRU.
 After ``rounds`` rounds (3 by default) the hidden state is the fused map.
-Everything here is fp32, as the JAX package's fp32 convs.
+Everything here is fp32, as the JAX package's fp32 convs; on the card the
+3x3 convs run in 3xTF32 on the tensor cores (``ops.conv3x3_f32x3``).
 
 Under a mesh (``fuse_sharded``) a rank updates its receivers' rows: each
 round after the first gathers every agent's hidden state over ``agent``
@@ -20,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from disconet_tpu_torch.models.base import IntermediateFusionModel, masked_sender_reduce
+from disconet_tpu_torch.ops.conv3x3 import conv3x3_f32x3
 from disconet_tpu_torch.parallel.spatial import halo_exchange
 
 
@@ -34,12 +36,11 @@ def _last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _same_conv(x: torch.Tensor, weight: torch.Tensor, bias, mesh) -> torch.Tensor:
-    """The SAME (odd k x k) conv of (N, C, h, w) ``x``; on a strip of an
-    H-sharded grid the neighbours' boundary rows stand in for the H padding."""
-    pad = weight.shape[-1] // 2
+    """The SAME 3x3 conv of (N, C, h, w) ``x``; on a strip of an H-sharded
+    grid the neighbours' boundary rows stand in for the H padding."""
     if mesh is not None and mesh.axis_size("spatial") > 1:
-        return F.conv2d(halo_exchange(x, mesh.group("spatial"), pad), weight, bias, padding=(0, pad))
-    return F.conv2d(x, weight, bias, padding=pad)
+        return conv3x3_f32x3(halo_exchange(x, mesh.group("spatial"), 1), weight, bias, pad_h=0)
+    return conv3x3_f32x3(x, weight, bias)
 
 
 class ConvGRU(nn.Module):

@@ -1,7 +1,8 @@
-"""Box codec, voxelizer, rotated IoU, NMS, losses, late fusion, pose warp and
+"""Box codec, voxelizer, V2VNet's float32 3x3 conv, rotated IoU, NMS, losses, late fusion, pose warp and
 block-space conv rewrites of the port; the names of the JAX package's
 ``disconet_tpu.ops`` where the port has them."""
 
+from disconet_tpu_torch.ops.conv3x3 import conv3x3_f32x3, conv3x3_plain  # noqa: F401
 from disconet_tpu_torch.ops.boxes import (  # noqa: F401
     box_corners,
     box_corners_np,
