@@ -1,23 +1,32 @@
 """The benchmark's spans and the reduction of a profiler trace to numbers.
 
-Spans are ``record_function`` ranges that the benchmark opens around its
-calls into the program's layers (the program has no spans of its own). A
-traced run profiles two short phases after its timed window with
+Spans are ``record_function`` ranges: the benchmark's own, which it opens
+around its calls into the program's layers (``call``/``step``,
+``voxelize``, ``iou``, ``model``, ``fusion``, ``loader``), and the
+program's, which ``disconet_tpu_torch/utils/profiling.py`` opens inside
+its layers while a profiler is active (``model/warp``, ``train/backward``,
+...). A traced run profiles two short phases after its timed window with
 ``torch.profiler``: one with host (CPU) and CUDA activity, which ties the
 device's work to the spans, and one with CUDA activity alone, which the
 profiler's own host work stretches far less.
-Each writes its Chrome trace to a temporary file, reduced here:
+Each writes its Chrome trace to a temporary file, reduced here. Every
+``user_annotation`` range of the trace is a span, so a span that a later
+version of the program opens is read by a metric file alone:
 
 * every device operation (kernel, memcpy, memset) is tied to the host call
   that launched it by its correlation id, and so to the spans that were
-  open on that thread when it was launched: a span's device time is the
-  summed duration of the operations launched inside it (the arithmetic of
-  ``chip_smoke.py::_device_ms``, lines 257-281, per span instead of per
-  call);
+  open on that thread when it was launched: a span's device time
+  (:meth:`TraceSummary.device_s`) is the summed duration of the operations
+  launched inside it (the arithmetic of ``chip_smoke.py::_device_ms``,
+  lines 257-281, per span instead of per call);
+* it is also tied to the spans that the main thread (the one that opened
+  most spans) held at the launch, from whichever thread
+  (:meth:`TraceSummary.device_s_during`): the backward's operations, which
+  autograd's thread launches while the main thread waits in
+  ``train/backward``, get that span's time;
 * ``busy_s`` is the union of the device operations' intervals, and the
   gaps between them are the idle time, each labelled by the innermost span
-  and the outermost host operation open on the launching thread when it
-  began.
+  and the outermost host operation open on the main thread when it began.
 """
 
 from __future__ import annotations
@@ -129,8 +138,7 @@ def open_at(ranges: List[Tuple[float, float, str]], times: List[Tuple[float, obj
 class TraceSummary:
     """What a profiled phase's Chrome trace says, reduced."""
 
-    def __init__(self, events: List[dict], window_s: float, span_names: Iterable[str]):
-        span_names = set(span_names)
+    def __init__(self, events: List[dict], window_s: float):
         launches: Dict[int, Tuple[int, float]] = {}
         spans_by_tid: Dict[int, List[Tuple[float, float, str]]] = defaultdict(list)
         ops_by_tid: Dict[int, List[Tuple[float, float, str]]] = defaultdict(list)
@@ -146,12 +154,13 @@ class TraceSummary:
                 corr = (e.get("args") or {}).get("correlation")
                 if corr is not None:
                     launches[corr] = (e.get("tid"), ts)
-            elif cat == "user_annotation" and e.get("name") in span_names:
-                spans_by_tid[e.get("tid")].append((ts, ts + dur, e["name"]))
+            elif cat == "user_annotation":
+                spans_by_tid[e.get("tid")].append((ts, ts + dur, e.get("name", "?")))
             elif cat == "cpu_op":
                 ops_by_tid[e.get("tid")].append((ts, ts + dur, e.get("name", "?")))
         self.window_s = window_s
-        # the spans open at each launch, per launching thread
+        main_tid = max(spans_by_tid, key=lambda t: len(spans_by_tid[t])) if spans_by_tid else None
+        # the spans open at each launch: on the launching thread, and on the main thread
         held_by_corr: Dict[int, List[str]] = {}
         queries: Dict[int, List[Tuple[float, int]]] = defaultdict(list)
         for corr, (tid, t) in launches.items():
@@ -159,20 +168,23 @@ class TraceSummary:
                 queries[tid].append((t, corr))
         for tid, q in queries.items():
             held_by_corr.update(open_at(spans_by_tid[tid], q))
+        held_by_main = open_at(spans_by_tid[main_tid], [(t, corr) for corr, (_, t) in launches.items()]) \
+            if main_tid is not None else {}
         # device seconds per op name, and per (spans open at launch, category)
         self.op_s: Dict[str, float] = defaultdict(float)
         self.path_cat_s: Dict[Tuple[Tuple[str, ...], str], float] = defaultdict(float)
+        self.during_cat_s: Dict[Tuple[Tuple[str, ...], str], float] = defaultdict(float)
         for s, e, name, cat, corr in device:
             d = (e - s) / 1e6
             self.op_s[name[:160]] += d
             self.path_cat_s[(tuple(held_by_corr.get(corr, ())), cat)] += d
+            self.during_cat_s[(tuple(held_by_main.get(corr, ())), cat)] += d
         busy_us, merged = union_length([(s, e) for s, e, *_ in device])
         self.busy_s = busy_us / 1e6
         # idle gaps between device work, labelled by what the main thread
-        # (the one that opened most spans) was doing when each began
+        # was doing when each began
         self.idle: Dict[str, float] = defaultdict(float)
         gaps = [(e0, s1) for (_, e0), (s1, _) in zip(merged, merged[1:])]
-        main_tid = max(spans_by_tid, key=lambda t: len(spans_by_tid[t])) if spans_by_tid else None
         q = [(e0, i) for i, (e0, _) in enumerate(gaps)]
         in_span = open_at(spans_by_tid.get(main_tid, []), q) if main_tid is not None else {}
         top_ops = _outermost(ops_by_tid.get(main_tid, []))
@@ -182,13 +194,23 @@ class TraceSummary:
             label = f"{sp[-1] if sp else 'outside spans'}: {op[0] if op else 'python'}"
             self.idle[label] += (s1 - e0) / 1e6
 
+    @staticmethod
+    def _sum(table, span: str, outside: Iterable[str], exclude_cats: Iterable[str]) -> float:
+        outside, exclude_cats = set(outside), set(exclude_cats)
+        return sum(d for (path, cat), d in table.items()
+                   if span in path and not outside.intersection(path) and cat not in exclude_cats)
+
     def device_s(self, span: str, outside: Iterable[str] = (), exclude_cats: Iterable[str] = ()) -> float:
         """Device seconds launched inside ``span`` (nested spans included)
         and in none of the spans ``outside``, leaving out the categories
         ``exclude_cats`` (of ``DEVICE_CATS``)."""
-        outside, exclude_cats = set(outside), set(exclude_cats)
-        return sum(d for (path, cat), d in self.path_cat_s.items()
-                   if span in path and not outside.intersection(path) and cat not in exclude_cats)
+        return self._sum(self.path_cat_s, span, outside, exclude_cats)
+
+    def device_s_during(self, span: str, outside: Iterable[str] = (), exclude_cats: Iterable[str] = ()) -> float:
+        """Device seconds of the operations launched, from any thread, while
+        the main thread held ``span`` (nested spans included) and none of
+        ``outside``, leaving out the categories ``exclude_cats``."""
+        return self._sum(self.during_cat_s, span, outside, exclude_cats)
 
     def breakdown(self, top: int = 10) -> Dict[str, list]:
         ops = sorted(self.op_s.items(), key=lambda kv: -kv[1])[:top]
@@ -207,7 +229,7 @@ def _outermost(ranges: List[Tuple[float, float, str]]) -> List[Tuple[float, floa
 
 
 @contextlib.contextmanager
-def profiled(device: torch.device, span_names: Iterable[str], host_ops: bool = True):
+def profiled(device: torch.device, host_ops: bool = True):
     """Profile the block; yields a list that holds the :class:`TraceSummary`
     once the block has ended. The device is synchronised at both ends and
     the block's wall time is the window. ``host_ops`` False records the
@@ -234,4 +256,4 @@ def profiled(device: torch.device, span_names: Iterable[str], host_ops: bool = T
             events = json.load(f).get("traceEvents", [])
     finally:
         os.remove(path)
-    holder.append(TraceSummary(events, window, span_names))
+    holder.append(TraceSummary(events, window))

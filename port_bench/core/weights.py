@@ -3,7 +3,10 @@
 Every floating leaf of a model's ``state_dict`` gets a value from the seed:
 kernels (two or more axes) a normal truncated to +-2 standard units,
 scaled to variance gain^2 / fan_in (fan_in = the kernel's row); biases
-zero; BatchNorm scale 1, shift 0, running mean 0, running variance 1. The
+zero; every norm's scale 1 and shift 0, running mean 0, running variance
+1. The norms are found by module type (:func:`unit_keys`), so that a
+LayerNorm, GroupNorm or RMSNorm of a later model starts at 1 as a
+BatchNorm does, whatever its key. The
 gain is sqrt(2) for kernels that a ReLU follows (``ConvBNRelu`` and
 V2VNet's message conv), so that eval-mode activations keep their scale
 through the depth of the network and the heads' scores spread, and 1
@@ -16,7 +19,7 @@ with ``load_state_dict`` and hands the same tensors to the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, FrozenSet
 
 import torch
 
@@ -42,9 +45,28 @@ def _gain(key: str) -> float:
     return math.sqrt(2.0) if ("ConvBNRelu" in key or "head_conv" in key or "msg_conv" in key) else 1.0
 
 
-def seeded_state(template: Dict[str, torch.Tensor], seed: int, stream: int, device) -> Dict[str, torch.Tensor]:
+# the norms whose ``weight`` is a scale that starts at 1
+NORMS = (torch.nn.modules.batchnorm._NormBase, torch.nn.LayerNorm, torch.nn.GroupNorm) + (
+    (torch.nn.RMSNorm,) if hasattr(torch.nn, "RMSNorm") else ())
+
+
+def unit_keys(model: torch.nn.Module) -> FrozenSet[str]:
+    """The ``state_dict`` keys of ``model`` that start at 1: the ``weight``
+    of every norm module (:data:`NORMS`) and every running variance."""
+    keys = set()
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, NORMS):
+            dot = prefix + "." if prefix else ""
+            keys.update(dot + name for name in ("weight", "running_var")
+                        if getattr(mod, name, None) is not None)
+    return frozenset(keys)
+
+
+def seeded_state(template: Dict[str, torch.Tensor], seed: int, stream: int, device,
+                 ones: FrozenSet[str]) -> Dict[str, torch.Tensor]:
     """Values for every floating leaf of ``template`` (a ``state_dict``),
-    fp32 on ``device``; integer leaves (BatchNorm's step counts) keep theirs."""
+    fp32 on ``device``; the 1-D leaves ``ones`` (of :func:`unit_keys`) 1;
+    integer leaves (BatchNorm's step counts) keep theirs."""
     kernels = [(k, v) for k, v in template.items() if v.is_floating_point() and v.dim() >= 2]
     gen = torch.Generator(device=device).manual_seed(stream_seed(seed, stream))
     sizes = [v.numel() for _, v in kernels]
@@ -60,7 +82,7 @@ def seeded_state(template: Dict[str, torch.Tensor], seed: int, stream: int, devi
             continue
         if not v.is_floating_point():
             out[k] = v.to(device)
-        elif k.endswith("running_var") or (k.endswith(".weight") and "BatchNorm" in k):
+        elif k in ones:
             out[k] = torch.ones(v.shape, device=device)
         elif k == "heads.reg.bias":  # (dx, dy, dw, dl, sin, cos) per anchor: headings near 0
             out[k] = torch.zeros(v.shape, device=device)

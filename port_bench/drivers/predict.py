@@ -25,12 +25,10 @@ from port_bench.core.harness import SmiSampler, percentile
 from port_bench.core.model import forward_flops, port_config
 from port_bench.core.trace import Spans, profiled
 from port_bench.core.traffic import grid_dims, predict_pool
-from port_bench.core.weights import seeded_state, stream_seed
+from port_bench.core.weights import seeded_state, stream_seed, unit_keys
 from port_bench.reference import detect as ref_detect
 from port_bench.reference.model import Ctx, anchors as ref_anchors, calibrate_batch_norm
 from port_bench.reference.precision import Precision, exact_float32
-
-SPANS = ("call", "voxelize", "model", "fusion", "iou")
 
 
 class _Reservoir:
@@ -93,14 +91,15 @@ def _faulty(predict, faults):
     return run
 
 
-def predict_weights(cell, template, seed: int, pool, device):
-    """The seeded weights, BatchNorm statistics settled on the pool's first batch."""
+def predict_weights(cell, model, seed: int, pool, device):
+    """The seeded weights of the program's ``model``, BatchNorm statistics
+    settled on the pool's first batch."""
     cfgd = cell.config["config"]
     b = pool[0]
     with exact_float32():
         bev = ref_detect.voxelize(torch.from_numpy(b["points"]).to(device), cfgd)
-        return calibrate_batch_norm(seeded_state(template, seed, 1, device), cfgd, cell.fusion_reference(), bev,
-                                    torch.from_numpy(b["trans"]).to(device),
+        state = seeded_state(model.state_dict(), seed, 1, device, unit_keys(model))
+        return calibrate_batch_norm(state, cfgd, cell.fusion_reference(), bev, torch.from_numpy(b["trans"]).to(device),
                                     torch.from_numpy(b["agent_mask"]).to(device), cell.config["layer"])
 
 
@@ -119,7 +118,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
     cfg = port_config(cfgd)
     model = build_model(cell.config["model"], cfg, layer=layer, device=device)
     pool = predict_pool(cfgd, mix, seed, device)
-    weights = predict_weights(cell, model.state_dict(), seed, pool, device)
+    weights = predict_weights(cell, model, seed, pool, device)
     model.load_state_dict(weights)
     anchors = ref_anchors(cfgd, "cpu").numpy()
     predict = _faulty(port_predict, options.get("faults", ()))
@@ -139,7 +138,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
 
     # the window
     sample = _Reservoir(mix["calls_compared"], stream_seed(seed, 30))
-    lat, calls = [], 0
+    lat, ends, calls = [], [], 0
     with SmiSampler(device.index or 0) if cuda else contextlib.nullcontext() as smi:
         t0 = time.perf_counter()
         while True:
@@ -147,6 +146,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
             host = call(calls)
             c1 = time.perf_counter()
             lat.append(c1 - c0)
+            ends.append(c1 - t0)
             sample.offer((calls % len(pool), host))
             calls += 1
             if c1 - t0 >= seconds:
@@ -155,7 +155,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
     for line in getattr(smi, "samples", []):
         log(f"card: {line}")
     log(f"predict: {calls} calls in {window:.3f} s, p50 {percentile(lat, 50) * 1e3:.3f} ms, "
-        f"p95 {percentile(lat, 95) * 1e3:.3f} ms, setup {setup_s:.3f} s")
+        f"p95 {percentile(lat, 95) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms, setup {setup_s:.3f} s")
+    n = max(int(seconds // 5), 1)  # the last slice takes the call that closes the window
+    slices = np.bincount(np.minimum(np.asarray(ends) // 5, n - 1).astype(int), minlength=n)
+    log(f"predict: calls in each 5 s of the window: {slices.tolist()}")
 
     readings = {"kind": "predict", "timed_window_s": window, "timed_calls": calls,
                 "flops_per_call": forward_flops(cell, pool[0]["agent_mask"])}
@@ -170,12 +173,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
         spans.around_forward("model", model)
         readings["fusion_span"] = spans.around_method("fusion", model, "_warp_and_fuse")
         n = mix["profile_calls"]
-        with profiled(device, SPANS) as holder:
+        with profiled(device) as holder:
             for i in range(n):
                 with torch.profiler.record_function("call"):
                     call(i, voxelize=Spans.wrap("voxelize", voxelize_occupy), iou=iou_seen)
         spans.remove()
-        with profiled(device, SPANS, host_ops=False) as quiet:
+        with profiled(device, host_ops=False) as quiet:
             for i in range(n):
                 call(i)
         log(f"predict: {window / calls * 1e3:.3f} ms a call in the window, traced {holder[0].window_s / n * 1e3:.3f} "
@@ -224,13 +227,15 @@ def check(cell, weights, pool, sampled, device) -> Dict[str, float]:
 def control(cell, seed: int, device: torch.device, calls: int = 8) -> Dict[str, float]:
     """The control's numbers: the reference in lower precision put in the
     program's place (its best candidates, thresholded, and greedy NMS),
-    judged against the reference on ``calls`` batches of the cell's pool."""
+    judged against the reference on ``calls`` batches of the cell's pool,
+    or on as many as a run compares where that is fewer."""
     cfgd, layer, mix = cell.config["config"], cell.config["layer"], cell.traffic
+    calls = min(calls, mix["calls_compared"])
     from disconet_tpu_torch.models.build import build_model
 
-    template = build_model(cell.config["model"], port_config(cfgd), layer=layer, device="cpu").state_dict()
+    model = build_model(cell.config["model"], port_config(cfgd), layer=layer, device="cpu")
     pool = predict_pool(cfgd, mix, seed, device)
-    weights = predict_weights(cell, template, seed, pool, device)
+    weights = predict_weights(cell, model, seed, pool, device)
     fusion = cell.fusion_reference()
     anchors = ref_anchors(cfgd, device)
     K = cfgd["nms_top_k"]

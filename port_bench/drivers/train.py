@@ -26,12 +26,11 @@ from port_bench.core.harness import SmiSampler
 from port_bench.core.model import forward_flops, port_config
 from port_bench.core.trace import Spans, profiled
 from port_bench.core.traffic import train_pool
-from port_bench.core.weights import seeded_state
+from port_bench.core.weights import seeded_state, unit_keys
 from port_bench.reference import train as ref_train
 from port_bench.reference.model import calibrate_batch_norm
 from port_bench.reference.precision import Precision, exact_float32
 
-SPANS = ("step", "loader", "model", "fusion")
 BETA1 = 0.9
 
 
@@ -66,12 +65,12 @@ def _faulty(step, model, faults, fusion_prefixes):
     return run
 
 
-def train_weights(cell, template, seed: int, pool, device, teacher: bool = False):
-    """The seeded weights of the student, its BatchNorm statistics where
-    BatchNorm starts them (mean 0, variance 1) as in training from scratch;
-    or of the teacher, which runs in eval mode, its statistics settled on
-    the pool's first batch of its grids."""
-    state = seeded_state(template, seed, 2 if teacher else 1, device)
+def train_weights(cell, model, seed: int, pool, device, teacher: bool = False):
+    """The seeded weights of the program's ``model``: of the student, its
+    BatchNorm statistics where BatchNorm starts them (mean 0, variance 1) as
+    in training from scratch; or of the teacher, which runs in eval mode,
+    its statistics settled on the pool's first batch of its grids."""
+    state = seeded_state(model.state_dict(), seed, 2 if teacher else 1, device, unit_keys(model))
     if not teacher:
         return state
     b = ref_train.dense_batch(pool[0], cell.config["config"], device)
@@ -96,12 +95,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
     model = build_model(cell.config["model"], cfg, layer=layer, device=device, kd_flag=kd)
     teacher = teacher_weights = tables = None
     pool = train_pool(cfgd, mix, seed, device)
-    weights = train_weights(cell, model.state_dict(), seed, pool, device)
+    weights = train_weights(cell, model, seed, pool, device)
     model.load_state_dict(weights)
     B = mix["batch"]
     if kd:
         teacher = build_model("teacher", cfg, device=device)
-        teacher_weights = train_weights(cell, teacher.state_dict(), seed, pool, device, teacher=True)
+        teacher_weights = train_weights(cell, teacher, seed, pool, device, teacher=True)
         teacher.load_state_dict(teacher_weights)
         if mix["kd_cache"]:
             frames = [{k: b[k][i] for k in ("bev_teacher_packed", "agent_mask", "frame_idx")}
@@ -163,14 +162,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device, t_st
         spans.around_forward("model", model)
         readings["fusion_span"] = spans.around_method("fusion", model, "_warp_and_fuse")
         n = mix["profile_steps"]
-        with profiled(device, SPANS) as holder:
+        with profiled(device) as holder:
             for _ in range(n):
                 with torch.profiler.record_function("loader"):
                     batch = next(feed)
                 with torch.profiler.record_function("step"):
                     step(batch)
         spans.remove()
-        with profiled(device, SPANS, host_ops=False) as quiet:
+        with profiled(device, host_ops=False) as quiet:
             for _ in range(n):
                 step(next(feed))
         log(f"train: {window / steps * 1e3:.3f} ms a step in the window, traced {holder[0].window_s / n * 1e3:.3f} "
@@ -226,11 +225,11 @@ def control(cell, seed: int, device: torch.device, fault: str = "") -> Dict[str,
     cfg = port_config(cfgd)
     pool = train_pool(cfgd, mix, seed, device)
     weights = train_weights(cell, build_model(cell.config["model"], cfg, layer=cell.config["layer"], device="cpu",
-                                              kd_flag=bool(mix["kd"])).state_dict(), seed, pool, device)
+                                              kd_flag=bool(mix["kd"])), seed, pool, device)
     teacher_weights = None
     if mix["kd"]:
-        teacher_weights = train_weights(cell, build_model("teacher", cfg, device="cpu").state_dict(), seed, pool,
-                                        device, teacher=True)
+        teacher_weights = train_weights(cell, build_model("teacher", cfg, device="cpu"), seed, pool, device,
+                                        teacher=True)
     mode, half = CONTROLS[fault]
     got = reference_steps(cell, weights, teacher_weights, pool, device, Precision(mode), half_batch=half)
     ref = reference_steps(cell, weights, teacher_weights, pool, device, Precision("reference"))

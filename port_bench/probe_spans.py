@@ -4,18 +4,19 @@ would read them, and what recording them costs.
     python3 port_bench/probe_spans.py --workload <cell> --seed <n> [--seconds 10] [--pairs 2]
 
 One process on the card. First a traced run of the cell by its mix's
-``drivers/<kind>.py``, with the program's span names
-(``core/program_trace.py``) added to its ``SPANS``, which gives each
-program span's device ms a call or step
+``drivers/<kind>.py``, whose trace (``core/trace.py``) gives each of the
+program's spans' device ms a call or step
 (launched inside it, and launched from any thread while the main thread
-held it), the share of the device time that the program's spans cover,
+held it), the share of the device time that the program's spans (those of
+the recorder's tables) cover,
 the idle gaps labelled by the program's innermost span, and the
 recorder's tables. Then ``--pairs`` pairs of the cell's untraced window
 run in turns without and with ``profiling.recording()`` (off, on, on, off,
 ...) on the same seed: ``recording_overhead`` is the on windows' time a
 call or step over the off windows', less 1, in %, and the on windows'
 ``predict/inputs`` host ms a call, with no profiler active, stands beside
-the traced run's (which ``input_copy_ms.predict`` reads). Last, the host
+the traced run's (which ``input_copy_ms.predict`` reads); ``--pairs 0``
+leaves them out. Last, the host
 cost of one span and of one counter, on and off. Prints one JSON object
 as the last line of standard output.
 """
@@ -35,7 +36,7 @@ import statistics  # noqa: E402
 import torch  # noqa: E402
 
 from port_bench.core import trace as trace_mod  # noqa: E402
-from port_bench.core.program_trace import PROGRAM_SPANS, ProgramTrace, recorder_tables  # noqa: E402
+from port_bench.core.program_trace import recorder_tables  # noqa: E402
 from port_bench.core.registry import load_cell  # noqa: E402
 
 # per kind: the span a call or step runs in, and the metric's name -> (span, launched from any thread)
@@ -52,13 +53,7 @@ LAYERS = {
 
 def traced(cell, drv, seed: int, seconds: float, device) -> dict:
     """The traced run with the program's spans: per-layer device ms, cover, idle, tables."""
-    spans, summary = drv.SPANS, trace_mod.TraceSummary
-    drv.SPANS = tuple(spans) + PROGRAM_SPANS
-    trace_mod.TraceSummary = ProgramTrace
-    try:
-        out = drv.run(cell, seed, seconds, True, device, time.perf_counter(), {}, log=lambda *a: None)
-    finally:
-        drv.SPANS, trace_mod.TraceSummary = spans, summary
+    out = drv.run(cell, seed, seconds, True, device, time.perf_counter(), {}, log=lambda *a: None)
     r = out["readings"]
     kind = r["kind"]
     n = r["profiled_calls"] if kind == "predict" else r["profiled_steps"]
@@ -71,9 +66,11 @@ def traced(cell, drv, seed: int, seconds: float, device) -> dict:
     if kind == "predict":
         res["per_layer"]["fuse_outside_warp_ms"] = 1e3 * t.device_s("model/fuse", outside=("model/warp",)) / n
     # the device time of the calls or steps, and the part no program span held
+    tables = recorder_tables(r) or {"spans": {}, "counters": {}}
+    program_spans = set(tables["spans"])
     total = t.device_s_during(outer)
     uncovered = {cat: sum(d for (path, c), d in t.during_cat_s.items()
-                          if c == cat and outer in path and not set(path) & set(PROGRAM_SPANS))
+                          if c == cat and outer in path and not set(path) & program_spans)
                  for cat in trace_mod.DEVICE_CATS}
     # a predict call's outputs come back by the benchmark's .cpu(), outside the program
     outputs = uncovered["gpu_memcpy"] if kind == "predict" else 0.0
@@ -82,7 +79,6 @@ def traced(cell, drv, seed: int, seconds: float, device) -> dict:
     res["cover"] = 1.0 - (sum(uncovered.values()) - outputs) / (total - outputs) if total > outputs else None
     res["idle_ms"] = {k: 1e3 * v / n for k, v in sorted(t.idle.items(), key=lambda kv: -kv[1])[:12]}
     res["busy_ms"] = 1e3 * r["device_trace"].busy_s / n
-    tables = recorder_tables(r) or {"spans": {}, "counters": {}}
     res["recorder"] = tables
     calls = tables["spans"].get("predict/inputs" if kind == "predict" else "train/forward", {}).get("count", 0)
     if calls:
@@ -165,7 +161,8 @@ def main(argv):
     device = torch.device("cuda")
     res = {"workload": cell.name, "seed": args.seed, "card": torch.cuda.get_device_name(device)}
     res["traced"] = traced(cell, drv, args.seed, args.seconds, device)
-    res["overhead"] = overhead(cell, drv, args.seed, args.seconds, args.pairs, device)
+    if args.pairs:
+        res["overhead"] = overhead(cell, drv, args.seed, args.seconds, args.pairs, device)
     res["unit_costs"] = unit_costs()
     print(json.dumps(res, default=str), flush=True)
     return 0

@@ -6,7 +6,10 @@ that would tempt a later change: where the configuration computes in
 bfloat16 (its convs and dots, ``compute_dtype``), the control computes them
 as fp8 training does (both operands in e4m3, the incoming gradient in e5m2,
 one scale per tensor; products and sums in float32); where it computes in
-float32 (V2VNet's fusion), in bfloat16 the same way. A second control,
+float32 (V2VNet's fusion), in bfloat16 the same way. Convs
+(:meth:`Precision.conv`) and plain products (:meth:`Precision.matmul`,
+:meth:`Precision.linear`: an attention's projections, its QK^T and PV)
+round alike. A second control,
 ``control_fusion``, lowers only what the configuration computes in float32
 and keeps the rest exact: V2VNet's fusion alone in bfloat16.
 """
@@ -66,18 +69,42 @@ class Precision:
             raise ValueError(f"unknown precision {mode!r}")
         self.mode = mode
 
-    def _kind(self, stated: str) -> str:
+    def _kind(self, stated: str):
+        """The rounding of a product that the configuration computes in
+        ``stated`` ("bfloat16" or "float32"): None where it stays exact."""
+        if self.mode == "reference" or (self.mode == "control_fusion" and stated != "float32"):
+            return None
         return "fp8" if stated == "bfloat16" else "bf16"
+
+    @staticmethod
+    def _rounded(product, k, *operands):
+        """``product`` of the operands rounded to ``k``, the gradient that
+        reaches it rounded before it is used."""
+        return _RoundGrad.apply(product(*(_Round.apply(a, k) for a in operands)), k)
 
     def conv(self, x, w, b=None, stride=1, padding=0, stated="bfloat16"):
         """The conv of a layer that the configuration computes in ``stated``
         ("bfloat16" or "float32")."""
-        if self.mode == "reference" or (self.mode == "control_fusion" and stated != "float32"):
-            return F.conv2d(x, w, b, stride, padding)
         k = self._kind(stated)
-        y = F.conv2d(_Round.apply(x, k), _Round.apply(w, k), None, stride, padding)
-        y = _RoundGrad.apply(y, k)  # the gradient that reaches the conv, rounded before it is used
+        if k is None:
+            return F.conv2d(x, w, b, stride, padding)
+        y = self._rounded(lambda x, w: F.conv2d(x, w, None, stride, padding), k, x, w)
         return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+    def matmul(self, a, b, stated="bfloat16"):
+        """``a @ b`` (batched as ``torch.matmul``) of a layer that the
+        configuration computes in ``stated``."""
+        k = self._kind(stated)
+        return a @ b if k is None else self._rounded(torch.matmul, k, a, b)
+
+    def linear(self, x, w, b=None, stated="bfloat16"):
+        """``x @ w.T + b`` (``F.linear``) of a layer that the configuration
+        computes in ``stated``."""
+        k = self._kind(stated)
+        if k is None:
+            return F.linear(x, w, b)
+        y = self._rounded(F.linear, k, x, w)
+        return y if b is None else y + b
 
 
 @contextlib.contextmanager

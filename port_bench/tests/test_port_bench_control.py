@@ -22,7 +22,7 @@ from port_bench.core.harness import run_cell
 from port_bench.core.registry import load_cell
 from port_bench.tests.tiny import make_root
 
-CELLS = ["disconet.predict.b4", "v2vnet.predict.b4", "disconet.train_kd.b4", "v2vnet.train.b4"]
+CELLS = ["disconet.predict.b4", "disconet.predict.b16", "v2vnet.predict.b4", "disconet.train_kd.b4", "v2vnet.train.b4"]
 FAULTS = {"predict": ["alter_answer", "half_batch", "flip_keep", "wrong_frame_scores", "reversed_ranking"],
           "train": ["unchanged_state", "fusion_unmoved", "half_batch", "alter_answer"]}
 

@@ -1,19 +1,19 @@
-"""The reading of the program's own spans and counters
-(``core/program_trace.py``) and the readers of its metrics, on synthetic
-Chrome events and tables."""
+"""The reading of the program's own spans and counters: every span of a
+trace, the program's included, by :class:`TraceSummary` (``core/trace.py``)
+and the recorder's tables (``core/program_trace.py``), and the readers of
+their metrics, on synthetic Chrome events and tables."""
 
 import sys
 import types
 
 import pytest
 
-from port_bench.core.program_trace import ProgramTrace, recorder_tables
+from port_bench.core.program_trace import recorder_tables
 from port_bench.core.registry import load_cell
 from port_bench.core.trace import TraceSummary
 from port_bench.tests.test_port_bench_counts import _x
 
 US = 1e-6
-NAMES = ("step", "train/forward", "train/backward", "train/update")
 
 
 def events():
@@ -31,7 +31,7 @@ def events():
 
 
 def test_device_s_during_gives_other_threads_launches_to_the_main_threads_span():
-    t = ProgramTrace(events(), 1e-4, NAMES)
+    t = TraceSummary(events(), 1e-4)
     assert t.device_s("train/backward") == 0.0  # launched where no span is open
     assert t.device_s_during("train/backward") == pytest.approx(22 * US)
     assert t.device_s_during("train/forward") == pytest.approx(10 * US)
@@ -41,13 +41,68 @@ def test_device_s_during_gives_other_threads_launches_to_the_main_threads_span()
     assert t.device_s_during("step") == pytest.approx(37 * US)
 
 
-def test_the_accepted_reductions_read_as_before():
-    for names in (NAMES, ("step",)):
-        base, prog = TraceSummary(events(), 1e-4, names), ProgramTrace(events(), 1e-4, names)
-        assert prog.busy_s == base.busy_s and dict(prog.idle) == dict(base.idle)
-        assert dict(prog.path_cat_s) == dict(base.path_cat_s) and prog.breakdown() == base.breakdown()
-        for span in names:
-            assert prog.device_s(span) == base.device_s(span)
+def test_a_span_of_no_list_gets_its_device_time():
+    """A span that a later program opens (``fusion/xyz``), inside the
+    forward, with a kernel launched on the main thread and one from a
+    second thread while the main thread holds it."""
+    ev = events() + [_x("fusion/xyz", "user_annotation", 1, 15, 10)]
+    t = TraceSummary(ev, 1e-4)
+    assert t.device_s("fusion/xyz") == pytest.approx(6 * US)  # fwd2, launched at 20 inside it
+    assert t.device_s("train/forward", outside=("fusion/xyz",)) == pytest.approx(4 * US)
+    ev += [_x("cudaLaunchKernel", "cuda_runtime", 2, 22, 1, 9), _x("side", "kernel", 7, 40, 7, 9)]
+    t = TraceSummary(ev, 1e-4)
+    assert t.device_s("fusion/xyz") == pytest.approx(6 * US)  # thread 2 held no span
+    assert t.device_s_during("fusion/xyz") == pytest.approx(13 * US)
+    assert t.idle  # the gaps are labelled by the innermost span, whatever its name
+
+
+def test_more_spans_leave_the_benchmarks_readings_as_they_were():
+    """The program's spans and torch's own annotations add names to a
+    launch's path; what a span of the benchmark reads stays the same."""
+    bare = [e for e in events() if e["cat"] != "user_annotation" or e["name"] == "step"]
+    extra = events() + [_x("Optimizer.step#Adam.step", "user_annotation", 1, 84, 10)]
+    base, more = TraceSummary(bare, 1e-4), TraceSummary(extra, 1e-4)
+    assert more.busy_s == base.busy_s and more.breakdown()["device_ops"] == base.breakdown()["device_ops"]
+    assert sum(more.idle.values()) == pytest.approx(sum(base.idle.values()))
+    for cats in ((), ("gpu_memcpy",)):
+        assert more.device_s("step", exclude_cats=cats) == base.device_s("step", exclude_cats=cats)
+    assert more.device_s_during("train/update") == pytest.approx(5 * US)
+
+
+@pytest.mark.parametrize("cell", ["disconet.train_kd.b4", "v2vnet.train.b4"])
+def test_the_step_readers(cell):
+    ev = events() + [_x("train/kd", "user_annotation", 1, -10, 8),  # the KD rows, before the forward
+                     _x("cudaLaunchKernel", "cuda_runtime", 1, -8, 1, 9), _x("rows", "kernel", 7, -7, 3, 9)]
+    r = {"kind": "train", "trace": TraceSummary(ev, 1e-4), "profiled_steps": 2}
+    c = load_cell(cell)
+    got = {m.name: c.reader(m.name).read(r) for m in c.per_layer
+           if m.name in ("forward_ms.train", "backward_ms.train", "update_ms.train", "kd_ms.train")}
+    assert got.pop("forward_ms.train") == pytest.approx(1e3 * 10 * US / 2)
+    assert got.pop("backward_ms.train") == pytest.approx(1e3 * 22 * US / 2)
+    assert got.pop("update_ms.train") == pytest.approx(1e3 * 5 * US / 2)  # the loader's copy counts
+    if cell == "disconet.train_kd.b4":
+        assert got.pop("kd_ms.train") == pytest.approx(1e3 * 3 * US / 2)
+    assert not got
+    for m in ("forward_ms.train", "backward_ms.train", "update_ms.train", "kd_ms.train"):
+        assert c.reader(m).read({"kind": "predict", "trace": r["trace"], "profiled_calls": 2}) is None
+        assert c.reader(m).read({"kind": "train", "profiled_steps": 2}) is None
+
+
+def test_warp_ms_predict():
+    ev = [_x("call", "user_annotation", 1, 0, 100), _x("fusion", "user_annotation", 1, 10, 40),
+          _x("model/warp", "user_annotation", 1, 12, 10), _x("model/fuse", "user_annotation", 1, 30, 15)]
+    for corr, ts in enumerate([5, 15, 35], start=1):
+        ev.append(_x("cudaLaunchKernel", "cuda_runtime", 1, ts, 1, corr))
+    ev += [_x("vox", "kernel", 7, 6, 2, 1), _x("taps", "kernel", 7, 16, 8, 2), _x("softmax", "kernel", 7, 36, 4, 3)]
+    r = {"kind": "predict", "trace": TraceSummary(ev, 1e-4), "profiled_calls": 2, "fusion_span": True}
+    for cell in ("disconet.predict.b4", "disconet.predict.b16", "v2vnet.predict.b4"):
+        c = load_cell(cell)
+        assert c.reader("warp_ms.predict").read(r) == pytest.approx(1e3 * 8 * US / 2)
+        assert c.reader("warp_ms.predict").read(r) <= c.reader("fusion_ms.predict").read(r)
+    assert load_cell("disconet.predict.b4").reader("warp_ms.predict").read({"kind": "train", "trace": r["trace"]}) \
+        is None
+    r["trace"] = TraceSummary([e for e in ev if e["name"] != "model/warp"], 1e-4)
+    assert load_cell("disconet.predict.b4").reader("warp_ms.predict").read(r) is None
 
 
 TABLES = {"spans": {"predict/inputs": {"count": 4, "host_ns": 12_000_000}, "nms/suppress": {"count": 4, "host_ns": 1}},

@@ -26,6 +26,8 @@ def tiny_config(name: str) -> dict:
 TINY_MIX = {
     "predict_b4": {"batch": 2, "agents": 3, "points_per_agent": 512, "absent": [[1, 2]], "pool": 2,
                    "calls_compared": 3, "profile_calls": 2, "warm_calls": 1},
+    "predict_b16": {"batch": 4, "agents": 3, "points_per_agent": 512, "absent": [[1, 2], [3, 2]], "pool": 2,
+                    "calls_compared": 2, "profile_calls": 2, "warm_calls": 1},
     "train_kd_b4": {"batch": 2, "agents": 3, "absent": [[1, 2]], "pool": 3, "warm_steps": 1, "profile_steps": 2},
     "train_b4": {"batch": 2, "agents": 3, "absent": [[1, 2]], "pool": 3, "warm_steps": 1, "profile_steps": 2},
 }
@@ -41,6 +43,7 @@ TINY_MIX = {
 PREDICT_LIMITS = {"box_gap": 0.5, "score_gap": 0.1, "rank_gap": 0.08, "keep_gap": 0.0}
 TINY_LIMITS = {
     "disconet.predict.b4": PREDICT_LIMITS,
+    "disconet.predict.b16": PREDICT_LIMITS,
     "v2vnet.predict.b4": PREDICT_LIMITS,
     "disconet.train_kd.b4": {"loss_gap": 0.004, "loss_terms_gap": 0.004, "fusion_grad_gap": 0.1, "change_gap": 0.3},
     "v2vnet.train.b4": {"loss_terms_gap": 0.002, "grad_gap_median": 0.015, "fusion_grad_gap": 0.1, "change_gap": 0.3},
